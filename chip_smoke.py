@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+Hopper card: the quickest proof that the port still builds, agrees with its
+plain versions and serves h2o-danube-1.8b at full width.
+
+    python3 chip_smoke.py
+
+Phases, one line each (each raises on failure; the script then exits
+non-zero and prints no result):
+
+1. machine   - the card's name and power limit (nvidia-smi), torch, CUDA,
+               nvcc, SM count, whether triton imports.
+2. build     - nvcc builds every kernel of the path from ``src/repro_torch/
+               csrc``; time and the compiler's register / spill report.
+3. kernels   - each kernel against its plain PyTorch version on the card,
+               fp32 at 5e-5 (the reference's kernel tolerance,
+               tests/test_kernels.py:22) and bf16 at atol 1e-3 + rtol
+               1e-2, at the main
+               path's shape and at edge shapes; kernel, plain, library and
+               bound times at the main path's shape.
+4. prefill   - the main path: ``make_prefill`` on h2o-danube-1.8b (24
+               layers, d_model 2560, random weights from a seed) for one
+               request of 8192 tokens, with the kernel's launch count read
+               around it; held against the plain chunked-attention path.
+5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens);
+               tokens checked, the prompt's last-token logits of the kernel
+               path held against the sequential cache prefill.
+6. result    - a JSON line per kernel, then the last line
+               ``{"ok": true, "device": {...}}``.
+
+TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
+card is a full fp32 product.  Nothing here imports JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import generator  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    kernel as fa_kernel, ref as fa_ref)
+from repro_torch.launch.serve import serve, setup  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.train.serve_step import (  # noqa: E402
+    greedy_generate, make_prefill)
+
+ARCH = "h2o-danube-1.8b"
+SEED = 0
+PREFILL_LEN = 8192          # > window + 1 = 4097, so the SWA mask is live
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 32
+
+# Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+# Kernel against its plain version.  fp32: the reference's kernel
+# tolerance.  bf16: both sides compute in fp32 and round the output once, so
+# they differ by at most one bf16 unit, which is under 2^-7 of the value and
+# so inside rtol; atol only covers the fp32 sums' own difference.  At the
+# main shape |out| is ~0.02 (4097 live keys), so the bound there is ~6% of a
+# typical value.
+KERNEL_TOL = {torch.float32: {"atol": 5e-5, "rtol": 5e-5},
+              torch.bfloat16: {"atol": 1e-3, "rtol": 1e-2}}
+# Full-model logits, kernel path against the plain chunked path.  fp32: the
+# two paths differ only in the order of fp32 sums (32-key tiles against
+# whole-row einsums), compounded over 24 layers.  bf16: every op rounds its
+# output to 8 mantissa bits, so where the paths' fp32 sums straddle a
+# rounding boundary the bf16 values differ by one unit (0.4%), and those
+# flips propagate through 24 layers; the bound is loose for that reason.
+FP32_REQUEST_TOL = 1e-3
+BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
+
+
+def phase(label: str, **fields) -> None:
+    print(f"[{label}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def check_close(what: str, got, want, *, atol: float, rtol: float) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{what}: max abs err {err:.3e} outside "
+                             f"atol={atol} rtol={rtol}")
+    return err
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn) -> float:
+    """Wall time of one call that ends in a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+# --------------------------------------------------------------- phase 1-2
+
+def machine() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    try:
+        import triton  # noqa: F401
+        has_triton = True
+    except ImportError:
+        has_triton = False
+    props = torch.cuda.get_device_properties(0)
+    phase("machine", card=repr(smi), torch=torch.__version__,
+          cuda=torch.version.cuda, nvcc=_build.nvcc_path(),
+          sm_count=props.multi_processor_count,
+          memory_gb=round(props.total_memory / 1e9, 1), triton=has_triton)
+
+
+def build_kernels() -> None:
+    t0 = time.perf_counter()
+    lib = _build.build("flash_attention")
+    secs = time.perf_counter() - t0
+    report = [line.strip() for line in
+              (lib.parent / "build.log").read_text().splitlines()
+              if "registers" in line or "spill" in line]
+    phase("build", kernel="flash_attention", seconds=f"{secs:.1f}",
+          library=lib.relative_to(ROOT))
+    for line in report:
+        print(f"  ptxas: {line}", flush=True)
+
+
+# ----------------------------------------------------------------- phase 3
+
+def live_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, i.e. the work these inputs
+    need."""
+    q = torch.arange(s, dtype=torch.int64)
+    hi = q if causal else torch.full_like(q, s - 1)
+    lo = (q - window).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def attention_bound_ms(b, hq, hkv, s, d, causal, window, dtype):
+    flops = 4.0 * d * live_pairs(s, causal, window) * b * hq
+    nbytes = torch.finfo(dtype).bits // 8 * (2 * b * hq * s * d
+                                              + 2 * b * hkv * s * d)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def attention_inputs(b, hq, hkv, s, d, dtype, strided, gen):
+    """q (B,Hq,S,D), k, v (B,Hkv,S,D).  ``strided``: transposed views of
+    (B,S,H,D) tensors, the layout the model hands the kernel."""
+    def make(h):
+        if strided:
+            return torch.randn((b, s, h, d), generator=gen,
+                               device="cuda").to(dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen,
+                           device="cuda").to(dtype)
+    return make(hq), make(hkv), make(hkv)
+
+
+CHECKS = [  # name, b, hq, hkv, s, d, causal, window, strided
+    ("danube S=2048 w=4096", 1, 32, 8, 2048, 80, True, 4096, True),
+    ("danube S=2048 w=256", 1, 32, 8, 2048, 80, True, 256, True),
+    ("ragged S=1000", 1, 32, 8, 1000, 80, True, 4096, True),
+    ("D=64 group 1", 1, 8, 8, 1024, 64, True, 0, False),
+    ("D=64 group 4", 1, 32, 8, 1024, 64, True, 0, False),
+    ("D=128 group 1", 1, 8, 8, 1024, 128, True, 0, False),
+    ("D=128 group 4", 1, 32, 8, 1024, 128, True, 0, False),
+    ("non-causal B=2", 2, 8, 2, 512, 80, False, 0, False),
+]
+# The main path's call: one layer of the 8192-token prefill request, bf16.
+MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
+        True)
+
+
+def kernel_checks() -> dict:
+    gen = generator(SEED, "cuda")
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        # bf16 at the main shape is checked below, where it is timed.  fp32
+        # there needs the plain version's 8.6 GB score matrix.
+        cases = CHECKS + [MAIN] if dtype == torch.float32 else CHECKS
+        for name, b, hq, hkv, s, d, causal, window, strided in cases:
+            q, k, v = attention_inputs(b, hq, hkv, s, d, dtype, strided, gen)
+            out = fa_kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=causal,
+                                window=window)
+            torch.cuda.synchronize()
+            want = fa_ref.attention(q, k, v, sm_scale=d ** -0.5,
+                                    causal=causal, window=window)
+            tol = KERNEL_TOL[dtype]
+            err = check_close(f"flash_attention {name} {dtype}", out, want,
+                              **tol)
+            checks.append({"case": name, "dtype": str(dtype)[6:],
+                           "max_abs_err": err, "tol": tol})
+            phase("kernel", kernel="flash_attention", case=repr(name),
+                  dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}", tol=tol)
+            del q, k, v, out, want
+            torch.cuda.empty_cache()
+
+    name, b, hq, hkv, s, d, causal, window, strided = MAIN
+    dtype = torch.bfloat16
+    q, k, v = attention_inputs(b, hq, hkv, s, d, dtype, strided, gen)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+    out = fa_kernel.mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa_ref.attention(q, k, v, **kw)
+    err = check_close(f"flash_attention {name}", out, want,
+                      **KERNEL_TOL[dtype])
+    checks.append({"case": name, "dtype": "bfloat16", "max_abs_err": err,
+                   "tol": KERNEL_TOL[dtype]})
+    del out, want
+    kernel_ms = cuda_ms(lambda: fa_kernel.mha(q, k, v, **kw), reps=10,
+                        warmup=2)
+    plain_ms = cuda_ms(lambda: fa_ref.attention(q, k, v, **kw), reps=3)
+    # Yardstick only (the port never calls it): PyTorch's fused attention
+    # with the same boolean mask, on the kv heads repeated beforehand.
+    ids = torch.arange(s, device="cuda")
+    mask = (ids[None, :] <= ids[:, None]) & (ids[None, :] >= ids[:, None]
+                                             - window)
+    k_rep = k.repeat_interleave(hq // hkv, dim=1)
+    v_rep = v.repeat_interleave(hq // hkv, dim=1)
+    library_ms = cuda_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(q, k_rep, v_rep,
+                                                       attn_mask=mask,
+                                                       scale=kw["sm_scale"]),
+                         reps=5)
+    bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, d, causal, window,
+                                            dtype)
+    phase("kernel", kernel="flash_attention", case=repr(name),
+          dtype="bfloat16", max_abs_err=f"{err:.3e}", tol=KERNEL_TOL[dtype],
+          kernel_ms=f"{kernel_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    del q, k, v, k_rep, v_rep, mask
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:100",
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
+                      "causal": causal, "window": window,
+                      "dtype": "bfloat16", "layout": "strided (B,S,H,D)"},
+            "checks": checks}
+
+
+# ----------------------------------------------------------------- phase 4
+
+def prefill_requests(entry: dict) -> None:
+    cfg = get_config(ARCH).replace(use_flash_kernel=True)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN),
+                           generator=generator(SEED + 1, "cuda"),
+                           device="cuda")
+
+    # fp32: the kernel path against the plain path (attn_chunk=1024 ->
+    # _sdpa_chunked), tight tolerance.
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    model = build(cfg32, "cuda").init(generator(SEED, "cuda"))
+    prefill = make_prefill(model)
+    fa_kernel.launches = 0
+    logits_k = prefill(tokens)
+    torch.cuda.synchronize()
+    launches32 = fa_kernel.launches
+    if launches32 != cfg.n_layers:
+        raise AssertionError(f"fp32 prefill launched the kernel "
+                             f"{launches32} times, want {cfg.n_layers}")
+    model.cfg = cfg32.replace(use_flash_kernel=False)
+    logits_p = prefill(tokens)
+    err32 = check_close("fp32 prefill logits, kernel vs plain", logits_k,
+                        logits_p, atol=FP32_REQUEST_TOL,
+                        rtol=FP32_REQUEST_TOL)
+    phase("prefill", dtype="float32", tokens=PREFILL_LEN,
+          launches=launches32, max_abs_err=f"{err32:.3e}",
+          tol=FP32_REQUEST_TOL,
+          logits_absmax=f"{logits_p.abs().max().item():.3f}")
+    del model, prefill, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    # bf16: the served dtype.  The counted run is the main path's run.
+    model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+    prefill = make_prefill(model)
+    prefill(tokens)                                   # warm-up
+    fa_kernel.launches = 0
+    logits_k = None
+
+    def request():
+        nonlocal logits_k
+        logits_k = prefill(tokens)
+    first_ms = host_ms(request)
+    launches = fa_kernel.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"bf16 prefill launched the kernel {launches} "
+                             f"times, want {cfg.n_layers}")
+    entry["launches"] = launches
+    kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
+    model.cfg = cfg.replace(use_flash_kernel=False)
+    logits_p = None
+
+    def plain_request():
+        nonlocal logits_p
+        logits_p = prefill(tokens)
+    plain_req_ms = sorted(host_ms(plain_request) for _ in range(3))
+    err16 = check_close("bf16 prefill logits, kernel vs plain", logits_k,
+                        logits_p, **BF16_REQUEST_TOL)
+    phase("prefill", dtype="bfloat16", tokens=PREFILL_LEN, launches=launches,
+          request_ms=[round(t, 3) for t in kernel_req_ms],
+          plain_request_ms=[round(t, 3) for t in plain_req_ms],
+          max_abs_err=f"{err16:.3e}", tol=BF16_REQUEST_TOL,
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+    del model, prefill, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 5
+
+def generation_request() -> None:
+    fa_kernel.launches = 0
+    out = serve(ARCH, smoke=False, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                max_new=GEN_NEW, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    gen_launches = fa_kernel.launches     # greedy decoding reaches no kernel
+    vocab = get_config(ARCH).vocab
+    if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or out.dtype != torch.int32:
+        raise AssertionError(f"tokens {tuple(out.shape)} {out.dtype}")
+    if not bool(((out >= 0) & (out < vocab)).all()):
+        raise AssertionError("token ids out of range")
+
+    model, prompt = setup(ARCH, smoke=False, batch=GEN_BATCH,
+                          prompt_len=GEN_PROMPT, seed=SEED, device="cuda")
+    cfg = model.cfg
+    model.cfg = cfg.replace(use_flash_kernel=True)
+    last_fast = make_prefill(model)(prompt)
+    model.cfg = cfg
+    with torch.inference_mode():
+        last_seq, _ = model.prefill(prompt,
+                                    model.init_cache(GEN_BATCH, GEN_PROMPT))
+    err = check_close("prompt logits, make_prefill vs sequential prefill",
+                      last_fast, last_seq, **BF16_REQUEST_TOL)
+    toks = None
+
+    def generate():
+        nonlocal toks
+        toks = greedy_generate(model, prompt, max_new=GEN_NEW)
+    gen_ms = host_ms(generate)
+    phase("generate", batch=GEN_BATCH, prompt=GEN_PROMPT, new=GEN_NEW,
+          kernel_launches=gen_launches, prompt_logits_err=f"{err:.3e}",
+          tol=BF16_REQUEST_TOL, request_ms=f"{gen_ms:.1f}",
+          tok_per_s=f"{GEN_BATCH * GEN_NEW / gen_ms * 1e3:.1f}",
+          same_tokens_as_serve=bool(torch.equal(toks, out)))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; nothing was run",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    machine()
+    build_kernels()
+    entry = kernel_checks()
+    prefill_requests(entry)
+    generation_request()
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

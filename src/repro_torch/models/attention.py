@@ -1,0 +1,179 @@
+"""Attention: GQA (full / sliding-window / chunked), prefill through the
+flash-attention kernel, and one-token decode against a KV cache.
+
+Counterpart of ``repro/models/attention.py`` for the causal self-attention
+blocks; cross-attention comes with the encoder families (ROADMAP.md, Queue
+A).  The reference's ``constrain`` sharding hints have no counterpart on one
+device.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from .layers import apply_rope, dense_init, dtype_of, empty_param, \
+    pdtype_of, softcap
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Parameters ``wq`` (d, Hq*hd), ``wk``/``wv`` (d, Hkv*hd) and ``wo``
+    (Hq*hd, d), as in the reference's ``attn_init``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        hd = cfg.head_dim
+        self.wq = empty_param((cfg.d_model, cfg.n_heads * hd), cfg, device)
+        self.wk = empty_param((cfg.d_model, cfg.n_kv_heads * hd), cfg, device)
+        self.wv = empty_param((cfg.d_model, cfg.n_kv_heads * hd), cfg, device)
+        self.wo = empty_param((cfg.n_heads * hd, cfg.d_model), cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        pd = pdtype_of(cfg)
+        for w in (self.wq, self.wk, self.wv):
+            w.copy_(dense_init(generator, *w.shape, pd))
+        self.wo.copy_(dense_init(generator, *self.wo.shape, pd,
+                                 scale=cfg.residual_scale))
+
+
+def _split_heads(x, n_heads, hd):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd)
+
+
+def _mask(sq: int, skv: int, *, window: int, q_offset: int = 0,
+          device=None):
+    """Causal mask of queries ``q_offset ..`` against keys ``0 .. skv-1``,
+    narrowed to the last ``window + 1`` keys when ``window > 0``."""
+    q_ids = q_offset + torch.arange(sq, device=device)[:, None]
+    k_ids = torch.arange(skv, device=device)[None, :]
+    m = k_ids <= q_ids
+    if window > 0:
+        m &= k_ids >= q_ids - window
+    return m
+
+
+def _sdpa(q, k, v, *, scale: float, window: int, logit_cap: float,
+          q_offset: int = 0):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,Hkv,hd) -> (B,Sq,H,hd)."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, sq, hkv, group, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    s = softcap(s, logit_cap)
+    mask = _mask(sq, k.shape[1], window=window, q_offset=q_offset,
+                 device=q.device)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _sdpa_chunked(q, k, v, *, scale: float, window: int, logit_cap: float,
+                  chunk: int):
+    """Loop over query chunks; never materialises (Sq, Skv) for all queries
+    at once.  Memory per step: (B,H,chunk,Skv).  The Python loop replaces
+    the reference's ``lax.scan`` (and its ``unroll`` switch, which only
+    served XLA's cost accounting)."""
+    b, sq, h, hd = q.shape
+    assert sq % chunk == 0, (sq, chunk)
+    outs = [_sdpa(q[:, i:i + chunk], k, v, scale=scale, window=window,
+                  logit_cap=logit_cap, q_offset=i)
+            for i in range(0, sq, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply(p: Attention, x, cfg: ModelConfig, *, window: int = 0):
+    """Causal prefill attention, with the reference's dispatch order:
+    flash kernel, else chunked, else plain."""
+    dt = dtype_of(cfg)
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = _split_heads(x @ p.wq.to(dt), cfg.n_heads, hd)
+    k = _split_heads(x @ p.wk.to(dt), cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p.wv.to(dt), cfg.n_kv_heads, hd)
+    positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    scale = hd ** -0.5
+
+    if cfg.use_flash_kernel and s % 128 == 0:
+        from ..kernels.flash_attention import flash_attention
+        # (B,S,H,D) -> (B,H,S,D) views; the kernel reads them through their
+        # strides.  Softcap is dropped on this path, as in the reference.
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), sm_scale=scale,
+                            causal=True, window=window)
+        o = o.transpose(1, 2)
+    elif cfg.attn_chunk > 0 and s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
+        o = _sdpa_chunked(q, k, v, scale=scale, window=window,
+                          logit_cap=cfg.attn_logit_softcap,
+                          chunk=cfg.attn_chunk)
+    else:
+        o = _sdpa(q, k, v, scale=scale, window=window,
+                  logit_cap=cfg.attn_logit_softcap)
+    return o.reshape(b, s, cfg.n_heads * hd) @ p.wo.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                  window: int = 0, device=None) -> Dict:
+    """Linear cache for full attention; ring cache of size `window + 1` for
+    SWA (the mask k >= q - window keeps window+1 keys including the current
+    token)."""
+    size = min(window + 1, max_len) if window > 0 else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_attn_apply(p: Attention, x, cache: Dict, pos: int,
+                      cfg: ModelConfig, *, window: int = 0):
+    """One-token decode.  x: (B, 1, D); pos: int (same for the whole batch);
+    returns (out, cache).  The cache is updated IN PLACE (the reference
+    returns a new one) and returned for the same call shape."""
+    dt = dtype_of(cfg)
+    b = x.shape[0]
+    hd = cfg.head_dim
+    q = _split_heads(x @ p.wq.to(dt), cfg.n_heads, hd)
+    k_new = _split_heads(x @ p.wk.to(dt), cfg.n_kv_heads, hd)
+    v_new = _split_heads(x @ p.wv.to(dt), cfg.n_kv_heads, hd)
+    posv = torch.full((b, 1), pos, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k_new = apply_rope(k_new, posv, cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slot = pos % size if window > 0 else pos
+    cache["k"][:, slot] = k_new[:, 0]          # in place
+    cache["v"][:, slot] = v_new[:, 0]          # in place
+    k, v = cache["k"], cache["v"]
+
+    hkv = cfg.n_kv_heads
+    group = cfg.n_heads // hkv
+    qg = q.reshape(b, hkv, group, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * hd ** -0.5
+    s = softcap(s, cfg.attn_logit_softcap)
+
+    slots = torch.arange(size, device=x.device)
+    if window > 0:
+        # ring buffer: slot holds absolute position pos - age, with age the
+        # slot's distance behind the newest one; valid once written
+        age = (slot - slots) % size
+        valid = pos - age >= 0
+    else:
+        valid = slots <= pos
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    pbar = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", pbar, v.float())
+    o = o.reshape(b, 1, cfg.n_heads * hd).to(dt)
+    return o @ p.wo.to(dt), cache

@@ -1,0 +1,91 @@
+"""Block registry: per-kind block modules with ``init``, ``forward``,
+``init_cache`` and ``decode``.  Counterpart of ``repro/models/blocks.py``.
+
+Every block owns its norms and residual adds.  Ported kinds:
+  attn        full causal GQA attention + SwiGLU MLP
+  local_attn  sliding-window GQA attention + MLP
+The other kinds of the reference raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import attention as attn_mod
+from .layers import MLP, empty_param, mlp_apply, rmsnorm
+
+NOT_PORTED: Dict[str, str] = {
+    "moe": "ROADMAP.md Queue A: MoE / MLA families",
+    "ssm": "ROADMAP.md Queue A: SSM / hybrid families (and Queue B: ssd)",
+    "rglru": "ROADMAP.md Queue A: SSM / hybrid families",
+    "cross_attn": "ROADMAP.md Queue A: encoder / cross-attention",
+    "enc_attn": "ROADMAP.md Queue A: encoder / cross-attention",
+}
+
+
+class AttnBlock(nn.Module):
+    """``attn`` (window 0) and ``local_attn`` (window = cfg.window) blocks:
+    parameters ``ln1``, ``attn`` and, when d_ff > 0, ``ln2`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device, *, window: int = 0):
+        super().__init__()
+        self.window = window
+        self.ln1 = empty_param((cfg.d_model,), cfg, device)
+        self.attn = attn_mod.Attention(cfg, device)
+        self.has_mlp = cfg.d_ff > 0
+        if self.has_mlp:
+            self.ln2 = empty_param((cfg.d_model,), cfg, device)
+            self.mlp = MLP(cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        self.ln1.fill_(1.0)
+        self.attn.init(generator, cfg)
+        if self.has_mlp:
+            self.ln2.fill_(1.0)
+            self.mlp.init(generator, cfg)
+
+    def forward(self, x, cfg: ModelConfig):
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        x = x + attn_mod.attn_apply(self.attn, h, cfg, window=self.window)
+        if self.has_mlp:
+            h = rmsnorm(x, self.ln2, cfg.norm_eps)
+            x = x + mlp_apply(self.mlp, h, cfg)
+        return x
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   device) -> Dict:
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len,
+                                             window=self.window,
+                                             device=device)}
+
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig):
+        """One token; updates ``cache`` in place and returns it."""
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        o, cache["kv"] = attn_mod.decode_attn_apply(
+            self.attn, h, cache["kv"], pos, cfg, window=self.window)
+        x = x + o
+        if self.has_mlp:
+            h = rmsnorm(x, self.ln2, cfg.norm_eps)
+            x = x + mlp_apply(self.mlp, h, cfg)
+        return x, cache
+
+
+REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], nn.Module]] = {
+    "attn": lambda cfg, device: AttnBlock(cfg, device, window=0),
+    "local_attn": lambda cfg, device: AttnBlock(cfg, device,
+                                                window=cfg.window),
+}
+
+
+def make_block(kind: str, cfg: ModelConfig, device) -> nn.Module:
+    if kind in REGISTRY:
+        return REGISTRY[kind](cfg, device)
+    if kind in NOT_PORTED:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet ({NOT_PORTED[kind]})")
+    raise KeyError(f"unknown block kind {kind!r}")

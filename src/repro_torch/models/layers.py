@@ -1,0 +1,108 @@
+"""Shared layers: init helpers, RMSNorm, rotary embeddings, SwiGLU MLP.
+
+Counterpart of ``repro/models/layers.py``.  Weights keep the reference's
+``(in, out)`` layout and are applied as ``x @ W``.  ``distributed.sharding
+.constrain`` has no counterpart: the port runs on one device, where the
+reference's constraints are no-ops.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def pdtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float = 1.0):
+    """N(0, (scale / sqrt(d_in))^2), drawn on the generator's device."""
+    std = scale * (d_in ** -0.5)
+    return (torch.randn((d_in, d_out), generator=generator,
+                        device=generator.device) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int, dtype):
+    return (torch.randn((vocab, d), generator=generator,
+                        device=generator.device) * 0.02).to(dtype)
+
+
+def empty_param(shape, cfg: ModelConfig, device) -> nn.Parameter:
+    """A parameter of ``shape`` in the config's parameter dtype, filled later
+    by an ``init`` or a weight load."""
+    return nn.Parameter(torch.empty(shape, dtype=pdtype_of(cfg),
+                                    device=device), requires_grad=False)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D_even); positions: (B, S) or (S,).  Halves, not
+    interleaved pairs: dim i rotates with dim i + D/2."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)          # (d/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs              # (B, S, d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """Parameters ``wg``, ``wu`` (d_model, d_ff) and ``wd`` (d_ff,
+    d_model), as in the reference's ``mlp_init``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.wg = empty_param((cfg.d_model, cfg.d_ff), cfg, device)
+        self.wu = empty_param((cfg.d_model, cfg.d_ff), cfg, device)
+        self.wd = empty_param((cfg.d_ff, cfg.d_model), cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        pd = pdtype_of(cfg)
+        d, width = self.wg.shape
+        self.wg.copy_(dense_init(generator, d, width, pd))
+        self.wu.copy_(dense_init(generator, d, width, pd))
+        self.wd.copy_(dense_init(generator, width, d, pd,
+                                 scale=cfg.residual_scale))
+
+
+def mlp_apply(p: MLP, x, cfg: ModelConfig):
+    dt = dtype_of(cfg)
+    h = nn.functional.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    return h @ p.wd.to(dt)
+
+
+def softcap(x, cap: float):
+    if cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)

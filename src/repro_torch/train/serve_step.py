@@ -1,0 +1,57 @@
+"""Serving: prefill + batched one-token decode steps, plus a simple batched
+greedy request loop.  Counterpart of ``repro/train/serve_step.py``.
+
+PyTorch runs eagerly, so nothing is jitted; every call runs under
+``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models import LanguageModel
+
+
+def make_prefill(model: LanguageModel) -> Callable:
+    """prefill(tokens) -> last-token logits (B, V).
+
+    Runs the full ``forward``, which is where the flash-attention kernel
+    runs (``use_flash_kernel`` and S % 128 == 0); the sequential
+    ``model.prefill`` of ``greedy_generate`` fills a cache instead."""
+
+    @torch.inference_mode()
+    def prefill(tokens):
+        logits, _ = model.forward(tokens)
+        return logits[:, -1, :]
+
+    return prefill
+
+
+def make_serve_step(model: LanguageModel) -> Callable:
+    """serve_step(cache, tokens (B,1), pos) -> (logits, cache).
+    One new token against a KV cache, updated in place."""
+
+    @torch.inference_mode()
+    def serve_step(cache, tokens, pos):
+        return model.decode_step(cache, tokens, pos)
+
+    return serve_step
+
+
+@torch.inference_mode()
+def greedy_generate(model: LanguageModel, prompt, *, max_new: int):
+    """Batched greedy decoding: (B, S) prompt -> (B, max_new) int32 tokens."""
+    b, s = prompt.shape
+    cache = model.init_cache(b, s + max_new)
+    # prefill fills the cache through position s-1 and returns the
+    # last-token logits
+    logits, cache = model.prefill(prompt, cache)
+
+    toks = []
+    for i in range(max_new):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks.append(nxt)
+        if i + 1 < max_new:
+            logits, cache = model.decode_step(cache, nxt, s + i)
+    return torch.cat(toks, dim=1)
