@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
-plain versions and serves h2o-danube-1.8b at full width.
+plain versions and serves h2o-danube-1.8b and mamba2-1.3b at full width.
 
     python3 chip_smoke.py
 
@@ -10,22 +10,32 @@ non-zero and prints no result):
 
 1. machine   - the card's name and power limit (nvidia-smi), torch, CUDA,
                nvcc, SM count, whether triton imports.
-2. build     - nvcc builds every kernel of the path from ``src/repro_torch/
-               csrc``; time and the compiler's register / spill report.
+2. build     - nvcc builds every kernel of the paths from ``src/repro_torch/
+               csrc``, one process per source, all started together; time
+               and the compiler's register / spill report.
 3. kernels   - each kernel against its plain PyTorch version on the card,
-               fp32 at 5e-5 (the reference's kernel tolerance,
-               tests/test_kernels.py:22) and bf16 at atol 1e-3 + rtol
-               1e-2, at the main
-               path's shape and at edge shapes; kernel, plain, library and
-               bound times at the main path's shape.
-4. prefill   - the main path: ``make_prefill`` on h2o-danube-1.8b (24
-               layers, d_model 2560, random weights from a seed) for one
-               request of 8192 tokens, with the kernel's launch count read
-               around it; held against the plain chunked-attention path.
-5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens);
-               tokens checked, the prompt's last-token logits of the kernel
-               path held against the sequential cache prefill.
-6. result    - a JSON line per kernel, then the last line
+               at the main paths' shapes and at edge shapes; kernel, plain,
+               library and bound times at the main paths' shapes.
+               flash_attention: fp32 at 5e-5 (the reference's kernel
+               tolerance, tests/test_kernels.py:22), bf16 at atol 1e-3 +
+               rtol 1e-2.  ssd (fp32 only, as the model sends it): 1e-4
+               against the plain chunked version, the reference's 5e-4 /
+               5e-3 (tests/test_kernels.py:181) against the exact scan,
+               chunks 64/128/256 agreeing at 2e-4 / 2e-3, and the
+               decay-stability case finite.
+4. prefill   - each model's main path: ``make_prefill`` at full width and
+               depth (random weights from a seed) for one request of 8192
+               tokens, with every kernel's launch count read around it;
+               held against the plain path in fp32, timed in bf16 (and
+               held there too for danube; see BF16_GATED).
+               h2o-danube-1.8b reaches flash attention 24 times, mamba2-1.3b
+               the SSD scan 48 times.
+5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens)
+               for each model; tokens checked, no kernel launched, the
+               prompt's last-token logits of the kernel path held against
+               the sequential cache prefill (danube in bf16, mamba2 in
+               fp32).
+6. result    - one JSON line listing every kernel, then the last line
                ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
@@ -49,15 +59,19 @@ from repro_torch.device import generator  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel as fa_kernel, ref as fa_ref)
+from repro_torch.kernels.ssd import (  # noqa: E402
+    kernel as ssd_kernel, ref as ssd_ref)
 from repro_torch.launch.serve import serve, setup  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.train.serve_step import (  # noqa: E402
     greedy_generate, make_prefill)
 
-ARCH = "h2o-danube-1.8b"
+DANUBE = "h2o-danube-1.8b"
+MAMBA2 = "mamba2-1.3b"
 SEED = 0
-PREFILL_LEN = 8192          # > window + 1 = 4097, so the SWA mask is live
+PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 32
+KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel}
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -79,6 +93,22 @@ KERNEL_TOL = {torch.float32: {"atol": 5e-5, "rtol": 5e-5},
 # flips propagate through 24 layers; the bound is loose for that reason.
 FP32_REQUEST_TOL = 1e-3
 BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
+# mamba2 runs its SSD kernel in fp32 whatever the model's dtype, so its fp32
+# request (gated above) already holds the kernel.  In bf16 its 48 recurrent
+# layers carry a rounding flip anywhere into every later token and layer,
+# so two paths that differ only in the order of fp32 sums give bf16 logits
+# as far apart as the bound itself: a bf16 bound could not tell a fault from
+# rounding.  For mamba2 the bf16 difference is printed beside the fp32 gate,
+# not gated, and the prompt logits of make_prefill are held against the
+# sequential cache prefill in fp32 (the served weights cast up).
+BF16_GATED = {DANUBE: True, MAMBA2: False}
+PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32}
+# SSD kernel against ``ssd_chunked`` at the same chunk: the same algorithm
+# in fp32 with its sums in another order (64-key tiles, a warp scan for
+# the cumsum, the decay applied after the C.h product).
+SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
+SSD_EXACT_TOL = {"atol": 5e-4, "rtol": 5e-3}     # tests/test_kernels.py:181
+SSD_CHUNK_TOL = {"atol": 2e-4, "rtol": 2e-3}     # tests/test_kernels.py:198
 
 
 def phase(label: str, **fields) -> None:
@@ -86,12 +116,16 @@ def phase(label: str, **fields) -> None:
           flush=True)
 
 
-def check_close(what: str, got, want, *, atol: float, rtol: float) -> float:
-    got, want = got.float(), want.float()
+def max_abs_err(what: str, got, want) -> float:
+    """Max |got - want|; raises if ``got`` has a non-finite value."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite values")
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_close(what: str, got, want, *, atol: float, rtol: float) -> float:
+    err = max_abs_err(what, got, want)
+    if not torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol):
         raise AssertionError(f"{what}: max abs err {err:.3e} outside "
                              f"atol={atol} rtol={rtol}")
     return err
@@ -142,15 +176,38 @@ def machine() -> None:
 
 def build_kernels() -> None:
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
+    libs = _build.build_all(list(KERNELS))
     secs = time.perf_counter() - t0
-    report = [line.strip() for line in
-              (lib.parent / "build.log").read_text().splitlines()
-              if "registers" in line or "spill" in line]
-    phase("build", kernel="flash_attention", seconds=f"{secs:.1f}",
-          library=lib.relative_to(ROOT))
-    for line in report:
-        print(f"  ptxas: {line}", flush=True)
+    for name, lib in libs.items():
+        phase("build", kernel=name, seconds=f"{secs:.1f}",
+              library=lib.relative_to(ROOT))
+        for line in (lib.parent / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+
+
+def reset_launches() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one ``make_prefill`` request with the kernels on:
+    one flash-attention call per attention block, one SSD call per ssm
+    block."""
+    per_group = {"flash_attention": sum(k in ("attn", "local_attn")
+                                        for k in cfg.pattern),
+                 "ssd": sum(k == "ssm" for k in cfg.pattern)}
+    return {name: cfg.n_groups * n for name, n in per_group.items()}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, want {want}")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -200,7 +257,7 @@ MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
         True)
 
 
-def kernel_checks() -> dict:
+def flash_attention_checks() -> dict:
     gen = generator(SEED, "cuda")
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -272,32 +329,138 @@ def kernel_checks() -> dict:
             "checks": checks}
 
 
+def ssd_bound_ms(b, s, h, p, n, chunk):
+    """The least time of one SSD scan: the work the function needs on the
+    live (j <= i) entries of each chunk, with C B^T once per chunk (it does
+    not depend on the head), against the fp32 CUDA-core peak; and x, y, dt,
+    a_log, b, c each moved once."""
+    live = chunk * (chunk + 1) // 2
+    per_chunk = 2 * live * n + h * (2 * live * p + 4 * chunk * n * p)
+    flops = b * (s // chunk) * per_chunk
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_inputs(b, s, h, p, n, gen, *, model_a_log=False):
+    """x ~ N(0,1), dt = softplus(N(0,1)), B and C ~ N(0,1)/sqrt(N), as the
+    reference's tests draw them; a_log is 0.5 N(0,1) there, or the model's
+    own init log(linspace(1, 16, H)) (decay rates up to 16)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(b, s, h, p)
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    if model_a_log:
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    else:
+        a_log = 0.5 * randn(h)
+    return x, dt, a_log, randn(b, s, n) / n ** 0.5, randn(b, s, n) / n ** 0.5
+
+
+SSD_CHECKS = [  # name, b, s, h, p, n, chunk
+    ("chunk 64", 1, 2048, 16, 64, 128, 64),
+    ("chunk 128", 1, 2048, 16, 64, 128, 128),
+    ("s < chunk (chunk = s = 200)", 1, 200, 16, 64, 128, 256),
+    ("B=2", 2, 1024, 8, 64, 128, 256),
+    ("N=P=16 chunk 16 (mamba2-smoke)", 2, 512, 8, 16, 16, 16),
+    ("N=P=16 ragged chunk 100", 1, 300, 4, 16, 16, 100),
+]
+# The main path's call: one layer of the 8192-token mamba2-1.3b prefill.
+SSD_MAIN = ("main path S=8192", 1, PREFILL_LEN, 64, 64, 128, 256)
+
+
+def ssd_checks() -> dict:
+    gen = generator(SEED + 2, "cuda")
+    checks = []
+
+    def check(name, args, chunk):
+        y = ssd_kernel.ssd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        err = check_close(f"ssd {name} vs chunked", y,
+                          ssd_ref.ssd_chunked(*args, chunk=chunk), **SSD_TOL)
+        err_exact = check_close(f"ssd {name} vs exact scan", y,
+                                ssd_ref.ssd_scan_ref(*args), **SSD_EXACT_TOL)
+        checks.append({"case": name, "chunk": chunk, "max_abs_err": err,
+                       "tol": SSD_TOL, "max_abs_err_exact": err_exact,
+                       "tol_exact": SSD_EXACT_TOL})
+        phase("kernel", kernel="ssd", case=repr(name), dtype="float32",
+              max_abs_err=f"{err:.3e}", tol=SSD_TOL,
+              max_abs_err_exact=f"{err_exact:.3e}", tol_exact=SSD_EXACT_TOL)
+        return y, err
+
+    for name, b, s, h, p, n, chunk in SSD_CHECKS:
+        check(name, ssd_inputs(b, s, h, p, n, gen), min(chunk, s))
+
+    # Decay stability (tests/test_kernels.py:200-210) at the nearest
+    # instantiated (N, P) = (16, 16): dt = 10, a_log = 2.
+    x, _, _, bm, cm = ssd_inputs(1, 128, 1, 16, 16, gen)
+    bm, cm = bm * 4.0, cm * 4.0                   # N(0, 1), as there
+    dt = torch.full((1, 128, 1), 10.0, device="cuda")
+    a_log = torch.full((1,), 2.0, device="cuda")
+    check("decay stability dt=10 a_log=2", (x, dt, a_log, bm, cm), 64)
+
+    name, b, s, h, p, n, chunk = SSD_MAIN
+    args = ssd_inputs(b, s, h, p, n, gen, model_a_log=True)
+    y, err = check(name, args, chunk)
+    for other in (64, 128):
+        chunk_err = check_close(f"ssd {name} chunk {other} vs {chunk}",
+                                ssd_kernel.ssd(*args, chunk=other), y,
+                                **SSD_CHUNK_TOL)
+        checks.append({"case": f"{name} chunk {other} vs {chunk}",
+                       "max_abs_err": chunk_err, "tol": SSD_CHUNK_TOL})
+        phase("kernel", kernel="ssd", case=repr(f"{name} chunk {other}"),
+              max_abs_err_vs_chunk_256=f"{chunk_err:.3e}", tol=SSD_CHUNK_TOL)
+    del y
+    kernel_ms = cuda_ms(lambda: ssd_kernel.ssd(*args, chunk=chunk), reps=20,
+                        warmup=2)
+    plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=chunk),
+                       reps=3)
+    bound_ms, bound_by = ssd_bound_ms(b, s, h, p, n, chunk)
+    phase("kernel", kernel="ssd", case=repr(name), dtype="float32",
+          kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=None, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+    del args
+    torch.cuda.empty_cache()
+    return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:78",
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes the SSD scan
+            "library_ms": None,
+            "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
+                      "dtype": "float32"},
+            "checks": checks}
+
+
 # ----------------------------------------------------------------- phase 4
 
-def prefill_requests(entry: dict) -> None:
-    cfg = get_config(ARCH).replace(use_flash_kernel=True)
+def prefill_requests(arch: str, entries: dict) -> None:
+    """The main path of ``arch``: fp32 kernel path against the plain path,
+    then the bf16 request counted and timed.  Records each kernel's launch
+    count of the counted run in its entry."""
+    cfg = get_config(arch).replace(use_flash_kernel=True)
+    want = expected_launches(cfg)
     tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN),
                            generator=generator(SEED + 1, "cuda"),
                            device="cuda")
 
-    # fp32: the kernel path against the plain path (attn_chunk=1024 ->
-    # _sdpa_chunked), tight tolerance.
+    # fp32: the kernel path against the plain path (danube: attn_chunk=1024
+    # -> _sdpa_chunked; mamba2: ssd_chunked), tight tolerance.
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
     model = build(cfg32, "cuda").init(generator(SEED, "cuda"))
     prefill = make_prefill(model)
-    fa_kernel.launches = 0
+    reset_launches()
     logits_k = prefill(tokens)
     torch.cuda.synchronize()
-    launches32 = fa_kernel.launches
-    if launches32 != cfg.n_layers:
-        raise AssertionError(f"fp32 prefill launched the kernel "
-                             f"{launches32} times, want {cfg.n_layers}")
+    launches32 = read_launches()
+    check_launches(f"{arch} fp32 prefill", launches32, want)
     model.cfg = cfg32.replace(use_flash_kernel=False)
     logits_p = prefill(tokens)
-    err32 = check_close("fp32 prefill logits, kernel vs plain", logits_k,
-                        logits_p, atol=FP32_REQUEST_TOL,
+    err32 = check_close(f"{arch} fp32 prefill logits, kernel vs plain",
+                        logits_k, logits_p, atol=FP32_REQUEST_TOL,
                         rtol=FP32_REQUEST_TOL)
-    phase("prefill", dtype="float32", tokens=PREFILL_LEN,
+    phase("prefill", arch=arch, dtype="float32", tokens=PREFILL_LEN,
           launches=launches32, max_abs_err=f"{err32:.3e}",
           tol=FP32_REQUEST_TOL,
           logits_absmax=f"{logits_p.abs().max().item():.3f}")
@@ -305,21 +468,22 @@ def prefill_requests(entry: dict) -> None:
     torch.cuda.empty_cache()
 
     # bf16: the served dtype.  The counted run is the main path's run.
+    torch.cuda.reset_peak_memory_stats()
     model = build(cfg, "cuda").init(generator(SEED, "cuda"))
     prefill = make_prefill(model)
     prefill(tokens)                                   # warm-up
-    fa_kernel.launches = 0
     logits_k = None
 
     def request():
         nonlocal logits_k
         logits_k = prefill(tokens)
+    reset_launches()
     first_ms = host_ms(request)
-    launches = fa_kernel.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"bf16 prefill launched the kernel {launches} "
-                             f"times, want {cfg.n_layers}")
-    entry["launches"] = launches
+    launches = read_launches()
+    check_launches(f"{arch} bf16 prefill", launches, want)
+    for name, n in want.items():
+        if n:
+            entries[name]["launches"] = launches[name]
     kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
     model.cfg = cfg.replace(use_flash_kernel=False)
     logits_p = None
@@ -328,12 +492,17 @@ def prefill_requests(entry: dict) -> None:
         nonlocal logits_p
         logits_p = prefill(tokens)
     plain_req_ms = sorted(host_ms(plain_request) for _ in range(3))
-    err16 = check_close("bf16 prefill logits, kernel vs plain", logits_k,
-                        logits_p, **BF16_REQUEST_TOL)
-    phase("prefill", dtype="bfloat16", tokens=PREFILL_LEN, launches=launches,
-          request_ms=[round(t, 3) for t in kernel_req_ms],
+    what = f"{arch} bf16 prefill logits, kernel vs plain"
+    if BF16_GATED[arch]:
+        tol16 = BF16_REQUEST_TOL
+        err16 = check_close(what, logits_k, logits_p, **tol16)
+    else:
+        tol16 = "not gated (see BF16_GATED)"
+        err16 = max_abs_err(what, logits_k, logits_p)
+    phase("prefill", arch=arch, dtype="bfloat16", tokens=PREFILL_LEN,
+          launches=launches, request_ms=[round(t, 3) for t in kernel_req_ms],
           plain_request_ms=[round(t, 3) for t in plain_req_ms],
-          max_abs_err=f"{err16:.3e}", tol=BF16_REQUEST_TOL,
+          max_abs_err=f"{err16:.3e}", tol=tol16,
           peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
     del model, prefill, logits_k, logits_p
     torch.cuda.empty_cache()
@@ -341,40 +510,55 @@ def prefill_requests(entry: dict) -> None:
 
 # ----------------------------------------------------------------- phase 5
 
-def generation_request() -> None:
-    fa_kernel.launches = 0
-    out = serve(ARCH, smoke=False, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+def generation_request(arch: str) -> None:
+    reset_launches()
+    out = serve(arch, smoke=False, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
                 max_new=GEN_NEW, seed=SEED, device="cuda")
     torch.cuda.synchronize()
-    gen_launches = fa_kernel.launches     # greedy decoding reaches no kernel
-    vocab = get_config(ARCH).vocab
+    gen_launches = read_launches()     # greedy decoding reaches no kernel
+    check_launches(f"{arch} generation", gen_launches,
+                   {name: 0 for name in KERNELS})
+    vocab = get_config(arch).vocab
     if tuple(out.shape) != (GEN_BATCH, GEN_NEW) or out.dtype != torch.int32:
         raise AssertionError(f"tokens {tuple(out.shape)} {out.dtype}")
     if not bool(((out >= 0) & (out < vocab)).all()):
         raise AssertionError("token ids out of range")
 
-    model, prompt = setup(ARCH, smoke=False, batch=GEN_BATCH,
+    model, prompt = setup(arch, smoke=False, batch=GEN_BATCH,
                           prompt_len=GEN_PROMPT, seed=SEED, device="cuda")
-    cfg = model.cfg
-    model.cfg = cfg.replace(use_flash_kernel=True)
-    last_fast = make_prefill(model)(prompt)
-    model.cfg = cfg
+    check_dtype = PROMPT_CHECK_DTYPE[arch]
+    if check_dtype == torch.float32:
+        checked = build(model.cfg.replace(dtype="float32",
+                                          param_dtype="float32"), "cuda")
+        checked.load_state_dict(model.state_dict())
+        tol = {"atol": FP32_REQUEST_TOL, "rtol": FP32_REQUEST_TOL}
+    else:
+        checked, tol = model, BF16_REQUEST_TOL
+    cfg = checked.cfg
+    checked.cfg = cfg.replace(use_flash_kernel=True)
+    last_fast = make_prefill(checked)(prompt)
+    checked.cfg = cfg
     with torch.inference_mode():
-        last_seq, _ = model.prefill(prompt,
-                                    model.init_cache(GEN_BATCH, GEN_PROMPT))
-    err = check_close("prompt logits, make_prefill vs sequential prefill",
-                      last_fast, last_seq, **BF16_REQUEST_TOL)
+        last_seq, _ = checked.prefill(
+            prompt, checked.init_cache(GEN_BATCH, GEN_PROMPT))
+    err = check_close(f"{arch} prompt logits, make_prefill vs sequential "
+                      f"prefill", last_fast, last_seq, **tol)
+    del checked, last_fast, last_seq
     toks = None
 
     def generate():
         nonlocal toks
         toks = greedy_generate(model, prompt, max_new=GEN_NEW)
     gen_ms = host_ms(generate)
-    phase("generate", batch=GEN_BATCH, prompt=GEN_PROMPT, new=GEN_NEW,
-          kernel_launches=gen_launches, prompt_logits_err=f"{err:.3e}",
-          tol=BF16_REQUEST_TOL, request_ms=f"{gen_ms:.1f}",
+    phase("generate", arch=arch, batch=GEN_BATCH, prompt=GEN_PROMPT,
+          new=GEN_NEW, kernel_launches=gen_launches,
+          prompt_logits_dtype=str(check_dtype)[6:],
+          prompt_logits_err=f"{err:.3e}", tol=tol,
+          request_ms=f"{gen_ms:.1f}",
           tok_per_s=f"{GEN_BATCH * GEN_NEW / gen_ms * 1e3:.1f}",
           same_tokens_as_serve=bool(torch.equal(toks, out)))
+    del model, prompt
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -386,10 +570,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     machine()
     build_kernels()
-    entry = kernel_checks()
-    prefill_requests(entry)
-    generation_request()
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = {"flash_attention": flash_attention_checks(),
+               "ssd": ssd_checks()}
+    for arch in (DANUBE, MAMBA2):
+        prefill_requests(arch, entries)
+        generation_request(arch)
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,8 @@ the JAX package, each in the same three layers:
   * ops.py    — public op with the reference's dispatch rules
   * ref.py    — plain PyTorch version, the oracle the kernel is held against
 
-Ported: flash_attention.  matmul, rmsnorm and ssd are still to be ported
-(ROADMAP.md, Queue B).
+Ported: flash_attention (dense attention prefill) and ssd (the Mamba2 SSD
+scan).  matmul and rmsnorm are still to be ported (ROADMAP.md, Queue B).
 """
 from . import flash_attention  # noqa: F401
+from . import ssd  # noqa: F401

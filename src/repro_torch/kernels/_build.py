@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -70,6 +71,14 @@ def build(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Build every kernel of ``names`` at once, one nvcc process each, all
+    started together; raises the first failure after all have ended."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+    return {name: fut.result() for name, fut in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

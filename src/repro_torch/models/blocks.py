@@ -4,6 +4,7 @@
 Every block owns its norms and residual adds.  Ported kinds:
   attn        full causal GQA attention + SwiGLU MLP
   local_attn  sliding-window GQA attention + MLP
+  ssm         Mamba2 mixer (SSD scan), no MLP
 The other kinds of the reference raise ``NotImplementedError`` naming the
 ROADMAP.md item that ports them.
 """
@@ -16,11 +17,11 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import MLP, empty_param, mlp_apply, rmsnorm
 
 NOT_PORTED: Dict[str, str] = {
     "moe": "ROADMAP.md Queue A: MoE / MLA families",
-    "ssm": "ROADMAP.md Queue A: SSM / hybrid families (and Queue B: ssd)",
     "rglru": "ROADMAP.md Queue A: SSM / hybrid families",
     "cross_attn": "ROADMAP.md Queue A: encoder / cross-attention",
     "enc_attn": "ROADMAP.md Queue A: encoder / cross-attention",
@@ -75,10 +76,41 @@ class AttnBlock(nn.Module):
         return x, cache
 
 
+class SsmBlock(nn.Module):
+    """``ssm`` block: parameters ``ln1`` and ``ssm`` (the Mamba2 mixer); no
+    MLP, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln1 = empty_param((cfg.d_model,), cfg, device)
+        self.ssm = ssm_mod.SSM(cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        self.ln1.fill_(1.0)
+        self.ssm.init(generator, cfg)
+
+    def forward(self, x, cfg: ModelConfig):
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        return x + ssm_mod.ssm_apply(self.ssm, h, cfg)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   device) -> Dict:
+        return {"ssm": ssm_mod.init_ssm_cache(cfg, batch, device)}
+
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig):
+        """One token; updates ``cache`` in place and returns it."""
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        o, cache["ssm"] = ssm_mod.ssm_decode(self.ssm, h, cache["ssm"], pos,
+                                             cfg)
+        return x + o, cache
+
+
 REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], nn.Module]] = {
     "attn": lambda cfg, device: AttnBlock(cfg, device, window=0),
     "local_attn": lambda cfg, device: AttnBlock(cfg, device,
                                                 window=cfg.window),
+    "ssm": SsmBlock,
 }
 
 

@@ -15,7 +15,6 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike
-from .layers import pdtype_of
 from .model import LanguageModel
 
 
@@ -38,16 +37,29 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> LanguageModel:
     """tree: the reference's params as numpy arrays (``jax.tree.map(
-    np.asarray, params)``).  Returns a port model holding the same values,
-    in ``dtype`` (default: the config's param dtype) on ``device``."""
+    np.asarray, params)``).  Returns a port model holding the same values on
+    ``device``, with ``dtype`` (default: the config's) as its param dtype.
+
+    Each leaf is loaded at the dtype of the port parameter it fills, which
+    keeps the reference's dtype roles: the leaves the reference pins to
+    fp32 (mamba2's ``a_log``, ``dt_bias``, ``d_skip``) stay fp32 under a
+    bf16 param dtype.  A leaf the port model does not hold, or a parameter
+    no leaf fills, raises."""
     if dtype is not None:
         cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
     model = LanguageModel(cfg, device)
+    want = model.state_dict()
     state: Dict[str, torch.Tensor] = {}
-    pd = pdtype_of(cfg)
+
+    def put(path, a):
+        if path not in want:
+            raise KeyError(f"reference leaf {path!r} has no counterpart in "
+                           f"the port model")
+        state[path] = _tensor(a, model.device, want[path].dtype)
+
     for path, a in _leaves(tree):
         if not path.startswith("groups."):
-            state[path] = _tensor(a, model.device, pd)
+            put(path, a)
             continue
         a = np.asarray(a)
         if a.shape[0] != cfg.n_groups:
@@ -55,6 +67,6 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                              f"n_groups={cfg.n_groups}")
         rest = path[len("groups."):]
         for g in range(cfg.n_groups):
-            state[f"groups.{g}.{rest}"] = _tensor(a[g], model.device, pd)
+            put(f"groups.{g}.{rest}", a[g])
     model.load_state_dict(state, strict=True)
     return model

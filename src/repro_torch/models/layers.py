@@ -34,10 +34,14 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, dtype):
                         device=generator.device) * 0.02).to(dtype)
 
 
-def empty_param(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    """A parameter of ``shape`` in the config's parameter dtype, filled later
-    by an ``init`` or a weight load."""
-    return nn.Parameter(torch.empty(shape, dtype=pdtype_of(cfg),
+def empty_param(shape, cfg: ModelConfig, device,
+                dtype: torch.dtype = None) -> nn.Parameter:
+    """A parameter of ``shape``, filled later by an ``init`` or a weight
+    load.  Its dtype is the config's parameter dtype unless ``dtype`` pins
+    it, as the reference pins a few leaves to fp32 whatever the config
+    says; ``convert.params_from_jax`` loads each leaf at the dtype given
+    here."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype or pdtype_of(cfg),
                                     device=device), requires_grad=False)
 
 

@@ -1,6 +1,6 @@
 """Language model: a stack of block groups following ``cfg.pattern``, with
 forward logits, prefill and one-token decode.  Counterpart of
-``repro/models/model.py`` for the dense families.
+``repro/models/model.py`` for the dense and SSM (mamba2) families.
 
 The reference stores each parameter STACKED over groups and runs them with
 ``lax.scan``; here each group is its own module and a Python loop runs them

@@ -16,8 +16,9 @@ from ..models import LanguageModel
 def make_prefill(model: LanguageModel) -> Callable:
     """prefill(tokens) -> last-token logits (B, V).
 
-    Runs the full ``forward``, which is where the flash-attention kernel
-    runs (``use_flash_kernel`` and S % 128 == 0); the sequential
+    Runs the full ``forward``, which is where the kernels run when
+    ``use_flash_kernel`` is set: flash attention (S % 128 == 0) in the
+    attention blocks, the SSD scan in the ssm blocks.  The sequential
     ``model.prefill`` of ``greedy_generate`` fills a cache instead."""
 
     @torch.inference_mode()

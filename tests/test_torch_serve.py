@@ -177,7 +177,7 @@ def test_init_follows_reference_distributions():
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("mamba2-1.3b", "ssm"), ("recurrentgemma-9b", "rglru"),
+    ("llama-3.2-vision-90b", "cross_attn"), ("recurrentgemma-9b", "rglru"),
     ("qwen3-moe-235b-a22b", "moe"), ("whisper-tiny", "enc_layers"),
     ("deepseek-v3-671b", "first_dense"),
 ])
@@ -205,11 +205,13 @@ def test_generation_reaches_no_kernel():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "generator", "build",
-                                   "setup", "serve", "init_kv_cache"])
+                                   "setup", "serve", "init_kv_cache",
+                                   "init_ssm_cache"])
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(ARCH, smoke=True)
     from repro_torch.models.attention import init_kv_cache
+    from repro_torch.models.ssm import init_ssm_cache
     calls = {
         "resolve_device": lambda dev: port_device.resolve_device(dev),
         "generator": lambda dev: port_device.generator(0, dev),
@@ -221,6 +223,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
                                               max_new=1, device=dev),
         "init_kv_cache": lambda dev: init_kv_cache(
             cfg, 1, 4, device=port_device.resolve_device(dev)),
+        "init_ssm_cache": lambda dev: init_ssm_cache(
+            get_config("mamba2-1.3b", smoke=True), 1, device=dev),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry](None)
