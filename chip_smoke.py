@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
-plain versions and serves h2o-danube-1.8b and mamba2-1.3b at full width.
+plain versions, serves h2o-danube-1.8b and mamba2-1.3b at full width, and
+runs the paper's loop (microbenchmark -> calibrate -> predict -> validate)
+on the card.
 
     python3 chip_smoke.py
 
@@ -22,7 +24,21 @@ non-zero and prints no result):
                against the plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
                chunks 64/128/256 agreeing at 2e-4 / 2e-3, and the
-               decay-stability case finite.
+               decay-stability case finite.  matmul (fp32 and bf16):
+               the reference's 5e-5 * sqrt(k) / 5e-2 * sqrt(k)
+               (tests/test_kernels.py:112-114) at edge shapes and the
+               suite's 4096^3 and 8192^3, every instantiated tile giving
+               the same bits.  rmsnorm (fp32 and bf16): the reference's
+               5e-5 / 5e-2 over rows 1/100/65536 x D 8/64/1024/2560/8192/
+               16384 and a leading-dims case.
+   loop      - the paper's loop at the card's sizes, through
+               ``launch.validate.validate_device``: calibrate_device
+               (measured parameters beside the datasheet h100.json values),
+               the validation suite (12 cases, among them the hand-written
+               matmul and rmsnorm), each case's measured, model and
+               roofline times, and four MAEs against roofline MAE.  Launch
+               counts read around it: matmul and rmsnorm as the suite
+               implies, flash attention and ssd 0.
 4. prefill   - each model's main path: ``make_prefill`` at full width and
                depth (random weights from a seed) for one request of 8192
                tokens, with every kernel's launch count read around it;
@@ -44,6 +60,7 @@ card is a full fp32 product.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -51,17 +68,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# torch.compile (the loop's compiled cases) compiles in this process rather
+# than in a pool of worker processes, so the script leaves none behind.
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import hardware, microbench  # noqa: E402
 from repro_torch.device import generator  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel as fa_kernel, ref as fa_ref)
+from repro_torch.kernels.matmul import (  # noqa: E402
+    kernel as mm_kernel, matmul, ref as mm_ref)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    kernel as rms_kernel, ref as rms_ref, rmsnorm)
 from repro_torch.kernels.ssd import (  # noqa: E402
     kernel as ssd_kernel, ref as ssd_ref)
 from repro_torch.launch.serve import serve, setup  # noqa: E402
+from repro_torch.launch.validate import validate_device  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.train.serve_step import (  # noqa: E402
     greedy_generate, make_prefill)
@@ -71,9 +97,11 @@ MAMBA2 = "mamba2-1.3b"
 SEED = 0
 PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 32
-KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel}
+KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel,
+           "matmul": mm_kernel, "rmsnorm": rms_kernel}
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
+# They hold for that card only: ``machine`` refuses any other.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
@@ -109,6 +137,10 @@ PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32}
 SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 SSD_EXACT_TOL = {"atol": 5e-4, "rtol": 5e-3}     # tests/test_kernels.py:181
 SSD_CHUNK_TOL = {"atol": 2e-4, "rtol": 2e-3}     # tests/test_kernels.py:198
+# matmul and rmsnorm against their plain versions: the reference's kernel
+# tolerances (tests/test_kernels.py:22); for the matmul atol is tol * sqrt(k)
+# (tests/test_kernels.py:112-114).
+MM_RMS_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 
 
 def phase(label: str, **fields) -> None:
@@ -162,6 +194,7 @@ def machine() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    microbench.base_params()    # raises unless this is the SXM5 H100
     try:
         import triton  # noqa: F401
         has_triton = True
@@ -198,10 +231,12 @@ def read_launches() -> dict:
 def expected_launches(cfg) -> dict:
     """Kernel launches of one ``make_prefill`` request with the kernels on:
     one flash-attention call per attention block, one SSD call per ssm
-    block."""
+    block; the models never reach the matmul or rmsnorm kernels, as in the
+    reference."""
     per_group = {"flash_attention": sum(k in ("attn", "local_attn")
                                         for k in cfg.pattern),
-                 "ssd": sum(k == "ssm" for k in cfg.pattern)}
+                 "ssd": sum(k == "ssm" for k in cfg.pattern),
+                 "matmul": 0, "rmsnorm": 0}
     return {name: cfg.n_groups * n for name, n in per_group.items()}
 
 
@@ -433,6 +468,240 @@ def ssd_checks() -> dict:
             "checks": checks}
 
 
+# --------------------------------------------------- phase 3: matmul, rmsnorm
+
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """The larger of the operations over the peak rate of ``dtype`` on the
+    CUDA cores or tensor cores, and the bytes over HBM's rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bits(t):
+    """The tensor's bits, so that equality means the same bits."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+MM_CHECKS = [(8, 8, 8), (100, 257, 1000), (4095, 4097, 129)]
+MM_PLAIN = (4, 512, 512)        # min(m, n, k) < 8: ops takes the plain version
+MM_SUITE = [(n, n, n) for n in microbench.CARD.gemm_kernels]
+MM_MAIN = (8192, 8192, 8192)    # the suite's largest hand-written case
+
+
+def matmul_checks() -> dict:
+    gen = generator(SEED + 3, "cuda")
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MM_RMS_TOL[dtype]
+        for m, n, k in MM_CHECKS + MM_SUITE:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+            outs = {t: mm_kernel.matmul_tiled(a, b, bm=t, bn=t)
+                    for t in mm_kernel.TILES}
+            torch.cuda.synchronize()
+            first = outs[mm_kernel.TILES[0]]
+            for t, out in outs.items():
+                if not torch.equal(bits(out), bits(first)):
+                    raise AssertionError(f"matmul {(m, n, k)} {dtype}: tile "
+                                         f"{t} differs in its bits from "
+                                         f"tile {mm_kernel.TILES[0]}")
+            err = check_close(f"matmul {(m, n, k)} {dtype}", first,
+                              mm_ref.matmul(a, b), atol=tol * k ** 0.5,
+                              rtol=tol)
+            checks.append({"case": [m, n, k], "dtype": str(dtype)[6:],
+                           "max_abs_err": err, "tol": tol,
+                           "tiles_bit_identical": list(mm_kernel.TILES)})
+            phase("kernel", kernel="matmul", case=[m, n, k],
+                  dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
+                  atol=f"{tol * k ** 0.5:.3e}", rtol=tol,
+                  tiles_bit_identical=list(mm_kernel.TILES))
+            del a, b, outs, first
+        m, n, k = MM_PLAIN
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        before = mm_kernel.launches
+        got = matmul(a, b)
+        if mm_kernel.launches != before:
+            raise AssertionError(f"matmul {MM_PLAIN}: the op launched the "
+                                 f"kernel for a product with m < 8")
+        check_close(f"matmul {MM_PLAIN} {dtype}", got, mm_ref.matmul(a, b),
+                    atol=tol * k ** 0.5, rtol=tol)
+        phase("kernel", kernel="matmul", case=list(MM_PLAIN),
+              dtype=str(dtype)[6:], path="plain (min(m, n, k) < 8)")
+    torch.cuda.empty_cache()
+
+    m, n, k = MM_MAIN
+    dtype = torch.float32
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((k, n), generator=gen, device="cuda")
+    err = check_close(f"matmul main {MM_MAIN}", mm_kernel.matmul_tiled(a, b),
+                      mm_ref.matmul(a, b), atol=MM_RMS_TOL[dtype] * k ** 0.5,
+                      rtol=MM_RMS_TOL[dtype])
+    tile_ms = {t: cuda_ms(lambda t=t: mm_kernel.matmul_tiled(a, b, bm=t,
+                                                             bn=t),
+                          reps=5, warmup=1)
+               for t in mm_kernel.TILES}
+    kernel_ms = cuda_ms(lambda: mm_kernel.matmul_tiled(a, b), reps=5,
+                        warmup=1)
+    plain_ms = cuda_ms(lambda: mm_ref.matmul(a, b), reps=5, warmup=1)
+    # Yardstick only (the port's kernel never calls it): cuBLAS, TF32 off.
+    library_ms = cuda_ms(lambda: torch.matmul(a, b), reps=5, warmup=1)
+    bnd, bound_by = bound_ms(2.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
+                             dtype)
+    phase("kernel", kernel="matmul", case=list(MM_MAIN), dtype="float32",
+          default_tile=mm_kernel.hopper_tile(m, n),
+          tile_ms={t: round(v, 4) for t, v in tile_ms.items()},
+          kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd:.4f}",
+          bound_by=bound_by,
+          tflops=f"{2.0 * m * n * k / kernel_ms / 1e9:.2f}")
+    del a, b
+    torch.cuda.empty_cache()
+    return {"name": "matmul", "route": "cuda",
+            "source": "src/repro_torch/csrc/matmul.cu",
+            "replaces": "src/repro/kernels/matmul/kernel.py:46",
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": {"m": m, "n": n, "k": k, "dtype": "float32",
+                      "tile": mm_kernel.hopper_tile(m, n)},
+            "tile_ms": tile_ms, "checks": checks}
+
+
+RMS_ROWS = (1, 100, 65536)
+RMS_DIMS = (8, 64, 1024, 2560, 8192, 16384)   # every path of the kernel
+RMS_LEAD = (4, 2048, 2560)      # ops flattens the leading dims
+RMS_MAIN = (65536, 2560)        # the suite's rmsnorm_kernel case
+
+
+def rmsnorm_checks() -> dict:
+    gen = generator(SEED + 4, "cuda")
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = MM_RMS_TOL[dtype]
+        shapes = [(r, d) for r in RMS_ROWS for d in RMS_DIMS] + [RMS_LEAD]
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(shape[-1], generator=gen, device="cuda").to(dtype)
+            before = rms_kernel.launches
+            got = rmsnorm(x, w)
+            torch.cuda.synchronize()
+            if rms_kernel.launches != before + 1:
+                raise AssertionError(f"rmsnorm {shape}: the op did not "
+                                     f"launch the kernel")
+            err = check_close(f"rmsnorm {shape} {dtype}", got,
+                              rms_ref.rmsnorm(x, w), atol=tol, rtol=tol)
+            checks.append({"case": list(shape), "dtype": str(dtype)[6:],
+                           "max_abs_err": err, "tol": tol})
+            phase("kernel", kernel="rmsnorm", case=list(shape),
+                  dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}", tol=tol)
+            del x, w, got
+    torch.cuda.empty_cache()
+
+    r, d = RMS_MAIN
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((r, d), generator=gen, device="cuda").to(dtype)
+        w = torch.randn(d, generator=gen, device="cuda").to(dtype)
+        err = check_close(f"rmsnorm main {RMS_MAIN} {dtype}",
+                          rms_kernel.rmsnorm_2d(x, w), rms_ref.rmsnorm(x, w),
+                          atol=MM_RMS_TOL[dtype], rtol=MM_RMS_TOL[dtype])
+        kernel_ms = cuda_ms(lambda: rms_kernel.rmsnorm_2d(x, w), reps=20,
+                            warmup=2)
+        plain_ms = cuda_ms(lambda: rms_ref.rmsnorm(x, w), reps=5, warmup=1)
+        # Yardstick only (the port never calls it).
+        library_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
+            x, (d,), w, 1e-6), reps=20, warmup=2)
+        size = x.element_size()
+        bnd, bound_by = bound_ms(4.0 * r * d, size * (2.0 * r * d + d),
+                                 torch.float32)
+        phase("kernel", kernel="rmsnorm", case=list(RMS_MAIN),
+              dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
+              kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd:.4f}",
+              bound_by=bound_by,
+              gb_per_s=f"{size * 2.0 * r * d / kernel_ms / 1e6:.1f}")
+        timed[dtype] = (err, kernel_ms, plain_ms, library_ms, bnd, bound_by)
+        del x, w
+    torch.cuda.empty_cache()
+    err, kernel_ms, plain_ms, library_ms, bnd, bound_by = timed[torch.float32]
+    err16, ms16, plain16, lib16, bnd16, _ = timed[torch.bfloat16]
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:31",
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": {"rows": r, "d": d, "dtype": "float32"},
+            "bf16": {"max_abs_err": err16, "ms": ms16, "plain_ms": plain16,
+                     "library_ms": lib16, "bound_ms": bnd16},
+            "checks": checks}
+
+
+# ------------------------------------------------------ phase: the loop
+
+def loop(entries: dict) -> None:
+    """The paper's loop at the card's sizes, through the entry point a user
+    calls.  Records the matmul and rmsnorm launch counts of this run in
+    their entries."""
+    sz = microbench.CARD
+    runs = 1 + sz.warmups + sz.repeats      # a first call, then the timed
+    want = {"flash_attention": 0, "ssd": 0,
+            "matmul": len(sz.gemm_kernels) * runs, "rmsnorm": runs}
+    t0 = time.perf_counter()
+    reset_launches()
+    hw, lad = validate_device(quick=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    check_launches("the loop", launches, want)
+    for name in ("matmul", "rmsnorm"):
+        entries[name]["launches"] = launches[name]
+
+    sheet = hardware.get("h100")
+    params = {
+        "fp32_matrix_flops": (hw.sustained_flops("fp32", matrix=True),
+                              sheet.sustained_flops("fp32", matrix=True)),
+        "fp32_vector_flops": (hw.sustained_flops("fp32", matrix=False),
+                              sheet.sustained_flops("fp32", matrix=False)),
+        "hbm_bytes_per_s": (hw.hbm_sustained_bw, sheet.hbm_sustained_bw),
+        "launch_latency_s": (hw.launch_latency_s, sheet.launch_latency_s),
+    }
+    for key, (measured, datasheet) in params.items():
+        if not (measured > 0 and measured < float("inf")):
+            raise AssertionError(f"measured {key} = {measured}")
+        phase("loop", parameter=key, measured=f"{measured:.6g}",
+              datasheet_h100=f"{datasheet:.6g}",
+              ratio=f"{measured / datasheet:.4f}")
+    # Physical limits: full-fp32 products cannot beat the CUDA cores' peak
+    # (a TF32 product would), and no stream beats HBM's rate.
+    if params["fp32_matrix_flops"][0] > PEAK_FLOPS[torch.float32]:
+        raise AssertionError("fp32 GEMM faster than the fp32 peak: TF32 on?")
+    if params["hbm_bytes_per_s"][0] > HBM_BYTES_PER_S:
+        raise AssertionError("stream bandwidth above HBM's rate")
+
+    if len(lad.suite) != 12:
+        raise AssertionError(f"suite has {len(lad.suite)} cases, want 12")
+    for row in lad.rows():
+        for key in ("measured_us", "model_us"):
+            if not (row[key] > 0 and row[key] < float("inf")):
+                raise AssertionError(f"loop row {row}")
+        phase("loop", **{k: row[k] for k in (
+            "kernel", "class", "measured_us", "model_us", "model_err_pct",
+            "roofline_err_pct", "base_model_err_pct")})
+    maes = lad.maes()
+    for rung, pair in maes.items():
+        phase("loop", mae=rung, model_pct=f"{pair['model']:.3f}",
+              roofline_pct=f"{pair['roofline']:.3f}")
+    if maes["per_case"]["model"] > 1e-6:
+        raise AssertionError(f"per-case calibration leaves "
+                             f"{maes['per_case']['model']}% MAE")
+    phase("loop", launches=launches, seconds=f"{secs:.1f}",
+          derived=repr(lad.derived()))
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- phase 4
 
 def prefill_requests(arch: str, entries: dict) -> None:
@@ -571,7 +840,9 @@ def main() -> int:
     machine()
     build_kernels()
     entries = {"flash_attention": flash_attention_checks(),
-               "ssd": ssd_checks()}
+               "ssd": ssd_checks(), "matmul": matmul_checks(),
+               "rmsnorm": rmsnorm_checks()}
+    loop(entries)
     for arch in (DANUBE, MAMBA2):
         prefill_requests(arch, entries)
         generation_request(arch)

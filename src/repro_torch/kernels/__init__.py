@@ -6,8 +6,11 @@ the JAX package, each in the same three layers:
   * ops.py    — public op with the reference's dispatch rules
   * ref.py    — plain PyTorch version, the oracle the kernel is held against
 
-Ported: flash_attention (dense attention prefill) and ssd (the Mamba2 SSD
-scan).  matmul and rmsnorm are still to be ported (ROADMAP.md, Queue B).
+All four are ported: flash_attention (dense attention prefill), ssd (the
+Mamba2 SSD scan), matmul and rmsnorm (measured workloads of the validation
+suite, ``core.microbench.device_suite``).
 """
 from . import flash_attention  # noqa: F401
+from . import matmul  # noqa: F401
+from . import rmsnorm  # noqa: F401
 from . import ssd  # noqa: F401

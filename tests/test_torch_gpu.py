@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and danube-smoke's and mamba2-smoke's prefill on the card against
-the same model on the CPU.  Every test here is marked ``gpu`` and skips
+version (the matmul also bit for bit across its tiles), danube-smoke's and
+mamba2-smoke's prefill on the card against the same model on the CPU, and
+the paper's loop (calibrate_device and the quick validation suite) on the
+card.  Every test here is marked ``gpu`` and skips
 without a card; on a card machine run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -14,7 +16,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import generator  # noqa: E402
+from repro_torch.core import microbench  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ref  # noqa: E402
+from repro_torch.kernels.matmul import kernel as mm_kernel  # noqa: E402
+from repro_torch.kernels.matmul import matmul  # noqa: E402
+from repro_torch.kernels.matmul import ref as mm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rms_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd import ref as ssd_ref  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -131,3 +140,95 @@ def test_mamba2_smoke_prefill_on_card_matches_cpu(cuda_device):
     assert ssd_kernel.launches == cfg.n_layers
     want = serve_step.make_prefill(on_cpu)(tokens)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# The reference's kernel tolerances (tests/test_kernels.py:22, 112-114,
+# 139-150): matmul atol tol * sqrt(k), rtol tol; rmsnorm atol = rtol = tol.
+KERNEL_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,n,k", [
+    (8, 8, 8), (100, 257, 1000), (64, 64, 200), (1024, 1024, 1024),
+    (4095, 257, 129),
+])
+def test_matmul_kernel_matches_plain_version(cuda_device, dtype, m, n, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
+    mm_kernel.launches = 0
+    outs = [mm_kernel.matmul_tiled(a, b, bm=t, bn=t)
+            for t in mm_kernel.TILES]
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == len(mm_kernel.TILES)
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for out in outs[1:]:                    # the same bits from every tile
+        assert torch.equal(out.view(as_int), outs[0].view(as_int))
+    want = mm_ref.matmul(a, b)
+    tol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(outs[0].float(), want.float(),
+                               atol=tol * k ** 0.5, rtol=tol)
+
+
+def test_matmul_out_dtype_and_dispatch_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a = torch.randn((96, 40), generator=gen, device=cuda_device)
+    b = torch.randn((40, 72), generator=gen, device=cuda_device)
+    mm_kernel.launches = 0
+    got = matmul(a, b, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and mm_kernel.launches == 1
+    torch.testing.assert_close(got, mm_ref.matmul(a, b,
+                                                  out_dtype=torch.bfloat16))
+    matmul(a[:4].contiguous(), b)          # min(m, n, k) < 8: plain version
+    assert mm_kernel.launches == 1
+    with pytest.raises(ValueError, match="row-major"):
+        mm_kernel.matmul_tiled(a.t(), a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [
+    (1, 8), (100, 64), (2, 3, 16, 64),      # one warp a row
+    (33, 1024), (4096, 2560), (7, 8192),    # one block a row, in registers
+    (3, 16384),                             # fp32: one warp, read twice
+])
+def test_rmsnorm_kernel_matches_plain_version(cuda_device, dtype, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    w = torch.randn(shape[-1], generator=gen, device=cuda_device).to(dtype)
+    rms_kernel.launches = 0
+    got = rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rms_kernel.launches == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(got.float(), rms_ref.rmsnorm(x, w).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_rmsnorm_eps_and_mixed_weight_on_card(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = 1e-2 * torch.randn((33, 128), generator=gen, device=cuda_device)
+    w = torch.randn(128, generator=gen, device=cuda_device)
+    got = rms_kernel.rmsnorm_2d(x.bfloat16(), w, eps=1e-3)
+    want = rms_ref.rmsnorm(x.bfloat16(), w, eps=1e-3)
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_calibrate_and_quick_suite_on_card(cuda_device):
+    if torch.cuda.get_device_name(cuda_device) != microbench.H100_SXM_NAME:
+        with pytest.raises(RuntimeError, match="H100"):
+            microbench.calibrate_device(quick=True)
+        return
+    hw = microbench.calibrate_device(quick=True)
+    assert hw.name == "h100_measured" and hw.model_family == "blackwell"
+    assert hw.hbm_sustained_bw > 0 and hw.launch_latency_s > 0
+    mm_kernel.launches = rms_kernel.launches = 0
+    suite = microbench.device_suite_result(quick=True)
+    sz = microbench.QUICK
+    runs = 1 + sz.warmups + sz.repeats
+    assert mm_kernel.launches == len(sz.gemm_kernels) * runs
+    assert rms_kernel.launches == runs
+    assert len(suite) == 10 and all(t > 0 for t in suite.measured_s)

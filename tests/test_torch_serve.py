@@ -258,10 +258,17 @@ def test_importing_the_port_loads_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import repro_torch.core, repro_torch.core.microbench\n"
+        "import repro_torch.launch.validate\n"
+        "for m in ('repro_torch.core', 'repro_torch.core.microbench',\n"
+        "          'repro_torch.launch.validate', 'repro_torch.obs.metrics',\n"
+        "          'repro_torch.kernels.matmul.kernel',\n"
+        "          'repro_torch.kernels.rmsnorm.kernel'):\n"
+        "    assert m in mods, m\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 15, mods\n")
+        "assert len(mods) >= 40, mods\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=300)
