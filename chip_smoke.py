@@ -14,10 +14,12 @@ non-zero and prints no result):
                nvcc, SM count, whether triton imports.
 2. build     - nvcc builds every kernel of the paths from ``src/repro_torch/
                csrc``, one process per source, all started together; time
-               and the compiler's register / spill report.
+               and the compiler's report for each kernel function
+               (registers, static shared memory, spills).
 3. kernels   - each kernel against its plain PyTorch version on the card,
                at the main paths' shapes and at edge shapes; kernel, plain,
-               library and bound times at the main paths' shapes.
+               library and bound times at the main paths' shapes, each
+               line naming the kernel's design (DESIGN).
                flash_attention: fp32 at 5e-5 (the reference's kernel
                tolerance, tests/test_kernels.py:22), bf16 at atol 1e-3 +
                rtol 1e-2.  ssd (fp32 only, as the model sends it): 1e-4
@@ -28,9 +30,13 @@ non-zero and prints no result):
                the reference's 5e-5 * sqrt(k) / 5e-2 * sqrt(k)
                (tests/test_kernels.py:112-114) at edge shapes and the
                suite's 4096^3 and 8192^3, every instantiated tile giving
-               the same bits.  rmsnorm (fp32 and bf16): the reference's
-               5e-5 / 5e-2 over rows 1/100/65536 x D 8/64/1024/2560/8192/
-               16384 and a leading-dims case.
+               the same bits, fp32 also against the fp64 product at the
+               same tolerance (cuBLAS's distance from it printed beside
+               the kernel's); 8192^3 timed in fp32 (beside the fp32
+               CUDA-core and the 3xTF32 bounds) and in bf16.  rmsnorm
+               (fp32 and bf16): the reference's 5e-5 / 5e-2 over rows
+               1/100/65536 x D 8/64/1024/2560/8192/16384 and a
+               leading-dims case.
    loop      - the paper's loop at the card's sizes, through
                ``launch.validate.validate_device``: calibrate_device
                (measured parameters beside the datasheet h100.json values),
@@ -101,16 +107,23 @@ KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel,
            "matmul": mm_kernel, "rmsnorm": rms_kernel}
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
-# They hold for that card only: ``machine`` refuses any other.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# They hold for that card only: ``machine`` refuses any other.  "3xtf32" is
+# the rate of an fp32 product made of three TF32 products on the tensor
+# cores (495 TFLOP/s TF32), the way the matmul kernel computes fp32.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              "3xtf32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 # Kernel against its plain version.  fp32: the reference's kernel
-# tolerance.  bf16: both sides compute in fp32 and round the output once, so
-# they differ by at most one bf16 unit, which is under 2^-7 of the value and
-# so inside rtol; atol only covers the fp32 sums' own difference.  At the
-# main shape |out| is ~0.02 (4097 live keys), so the bound there is ~6% of a
-# typical value.
+# tolerance.  bf16: both sides compute scores and softmax in fp32; the
+# kernel rounds P to bf16 as p_hi + p_lo (~16 bits, so ~2^-16 of |v|) before
+# the product with V, and both round the output once, so they differ by at
+# most one bf16 unit (under 2^-7 of the value, inside rtol) plus that small
+# term; atol covers it and the fp32 sums' own difference.  At the main shape
+# |out| is ~0.02 (4097 live keys), so the bound there is ~6% of a typical
+# value.  P rounded once to bf16 would not hold it: rows with a few live keys
+# would move by up to a bf16 unit of |v| (scripts/flash_p_rounding.py
+# measures that variant on the card).
 KERNEL_TOL = {torch.float32: {"atol": 5e-5, "rtol": 5e-5},
               torch.bfloat16: {"atol": 1e-3, "rtol": 1e-2}}
 # Full-model logits, kernel path against the plain chunked path.  fp32: the
@@ -141,6 +154,12 @@ SSD_CHUNK_TOL = {"atol": 2e-4, "rtol": 2e-3}     # tests/test_kernels.py:198
 # tolerances (tests/test_kernels.py:22); for the matmul atol is tol * sqrt(k)
 # (tests/test_kernels.py:112-114).
 MM_RMS_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+# What each kernel computes with, by input type: printed on its lines and
+# kept in its entry of the kernels JSON line.
+DESIGN = {"flash_attention": {torch.bfloat16: "mma.sync bf16 + cp.async",
+                              torch.float32: "fp32 FMA, CUDA cores"},
+          "matmul": {torch.float32: "3xTF32 mma.sync + cp.async",
+                     torch.bfloat16: "mma.sync bf16"}}
 
 
 def phase(label: str, **fields) -> None:
@@ -215,7 +234,8 @@ def build_kernels() -> None:
         phase("build", kernel=name, seconds=f"{secs:.1f}",
               library=lib.relative_to(ROOT))
         for line in (lib.parent / "build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
 
@@ -256,8 +276,12 @@ def live_pairs(s: int, causal: bool, window: int) -> int:
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
+def attention_flops(b, hq, s, d, causal, window) -> float:
+    return 4.0 * d * live_pairs(s, causal, window) * b * hq
+
+
 def attention_bound_ms(b, hq, hkv, s, d, causal, window, dtype):
-    flops = 4.0 * d * live_pairs(s, causal, window) * b * hq
+    flops = attention_flops(b, hq, s, d, causal, window)
     nbytes = torch.finfo(dtype).bits // 8 * (2 * b * hq * s * d
                                               + 2 * b * hkv * s * d)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -286,6 +310,9 @@ CHECKS = [  # name, b, hq, hkv, s, d, causal, window, strided
     ("D=128 group 1", 1, 8, 8, 1024, 128, True, 0, False),
     ("D=128 group 4", 1, 32, 8, 1024, 128, True, 0, False),
     ("non-causal B=2", 2, 8, 2, 512, 80, False, 0, False),
+    ("window 1", 1, 32, 8, 512, 80, True, 1, True),      # two live keys a row
+    ("window 16", 1, 32, 8, 512, 80, True, 16, True),
+    ("S=72 D=128", 1, 8, 2, 72, 128, True, 0, False),   # under one query tile
 ]
 # The main path's call: one layer of the 8192-token prefill request, bf16.
 MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
@@ -312,7 +339,9 @@ def flash_attention_checks() -> dict:
             checks.append({"case": name, "dtype": str(dtype)[6:],
                            "max_abs_err": err, "tol": tol})
             phase("kernel", kernel="flash_attention", case=repr(name),
-                  dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}", tol=tol)
+                  dtype=str(dtype)[6:],
+                  design=repr(DESIGN["flash_attention"][dtype]),
+                  max_abs_err=f"{err:.3e}", tol=tol)
             del q, k, v, out, want
             torch.cuda.empty_cache()
 
@@ -345,11 +374,17 @@ def flash_attention_checks() -> dict:
                          reps=5)
     bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, d, causal, window,
                                             dtype)
+    # The work the design issues: P V twice (p_hi, p_lo), 6 D a live pair.
+    split_bound_ms = bound_ms * 1.5 if bound_by == "operations" else bound_ms
+    flops = attention_flops(b, hq, s, d, causal, window)
+    design = DESIGN["flash_attention"][dtype]
     phase("kernel", kernel="flash_attention", case=repr(name),
-          dtype="bfloat16", max_abs_err=f"{err:.3e}", tol=KERNEL_TOL[dtype],
-          kernel_ms=f"{kernel_ms:.4f}",
+          dtype="bfloat16", design=repr(design), max_abs_err=f"{err:.3e}",
+          tol=KERNEL_TOL[dtype], kernel_ms=f"{kernel_ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+          split_p_bound_ms=f"{split_bound_ms:.4f}",
+          tflops=f"{flops / kernel_ms / 1e9:.1f}")
     del q, k, v, k_rep, v_rep, mask
     torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
@@ -357,7 +392,7 @@ def flash_attention_checks() -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:100",
             "launches": None, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "design": design,
             "shape": {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
                       "causal": causal, "window": window,
                       "dtype": "bfloat16", "layout": "strided (B,S,H,D)"},
@@ -471,8 +506,9 @@ def ssd_checks() -> dict:
 # --------------------------------------------------- phase 3: matmul, rmsnorm
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
-    """The larger of the operations over the peak rate of ``dtype`` on the
-    CUDA cores or tensor cores, and the bytes over HBM's rate."""
+    """The larger of the operations over the peak rate of ``dtype`` (a
+    ``PEAK_FLOPS`` key) on the CUDA cores or tensor cores, and the bytes
+    over HBM's rate."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -483,7 +519,8 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-MM_CHECKS = [(8, 8, 8), (100, 257, 1000), (4095, 4097, 129)]
+MM_CHECKS = [(8, 8, 8), (64, 64, 8), (100, 257, 1000), (129, 4097, 257),
+             (4095, 4097, 129), (256, 256, 8192)]
 MM_PLAIN = (4, 512, 512)        # min(m, n, k) < 8: ops takes the plain version
 MM_SUITE = [(n, n, n) for n in microbench.CARD.gemm_kernels]
 MM_MAIN = (8192, 8192, 8192)    # the suite's largest hand-written case
@@ -506,17 +543,32 @@ def matmul_checks() -> dict:
                     raise AssertionError(f"matmul {(m, n, k)} {dtype}: tile "
                                          f"{t} differs in its bits from "
                                          f"tile {mm_kernel.TILES[0]}")
-            err = check_close(f"matmul {(m, n, k)} {dtype}", first,
-                              mm_ref.matmul(a, b), atol=tol * k ** 0.5,
-                              rtol=tol)
-            checks.append({"case": [m, n, k], "dtype": str(dtype)[6:],
-                           "max_abs_err": err, "tol": tol,
-                           "tiles_bit_identical": list(mm_kernel.TILES)})
+            plain = mm_ref.matmul(a, b)
+            err = check_close(f"matmul {(m, n, k)} {dtype}", first, plain,
+                              atol=tol * k ** 0.5, rtol=tol)
+            check = {"case": [m, n, k], "dtype": str(dtype)[6:],
+                     "max_abs_err": err, "tol": tol,
+                     "tiles_bit_identical": list(mm_kernel.TILES)}
+            if dtype == torch.float32:
+                # A second witness: the fp64 product of the same inputs,
+                # which tells the kernel's error from cuBLAS's own.
+                exact = torch.matmul(a.double(), b.double())
+                check["max_abs_err_vs_fp64"] = check_close(
+                    f"matmul {(m, n, k)} fp32 vs fp64", first, exact,
+                    atol=tol * k ** 0.5, rtol=tol)
+                check["plain_max_abs_err_vs_fp64"] = max_abs_err(
+                    f"plain matmul {(m, n, k)}", plain, exact)
+                del exact
+            checks.append(check)
             phase("kernel", kernel="matmul", case=[m, n, k],
-                  dtype=str(dtype)[6:], max_abs_err=f"{err:.3e}",
+                  dtype=str(dtype)[6:], design=repr(DESIGN["matmul"][dtype]),
+                  max_abs_err=f"{err:.3e}",
                   atol=f"{tol * k ** 0.5:.3e}", rtol=tol,
-                  tiles_bit_identical=list(mm_kernel.TILES))
-            del a, b, outs, first
+                  tiles_bit_identical=list(mm_kernel.TILES),
+                  **{key: f"{check[key]:.3e}" for key in
+                     ("max_abs_err_vs_fp64", "plain_max_abs_err_vs_fp64")
+                     if key in check})
+            del a, b, outs, first, plain
         m, n, k = MM_PLAIN
         a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
@@ -547,15 +599,40 @@ def matmul_checks() -> dict:
     plain_ms = cuda_ms(lambda: mm_ref.matmul(a, b), reps=5, warmup=1)
     # Yardstick only (the port's kernel never calls it): cuBLAS, TF32 off.
     library_ms = cuda_ms(lambda: torch.matmul(a, b), reps=5, warmup=1)
-    bnd, bound_by = bound_ms(2.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
-                             dtype)
+    flops = 2.0 * m * n * k
+    # The kernel's floor is its three TF32 products on the tensor cores; the
+    # fp32 CUDA-core bound (what an fp32 FMA kernel could reach) beside it.
+    bnd, bound_by = bound_ms(flops, 4.0 * (m * k + k * n + m * n), "3xtf32")
+    bnd_fp32, _ = bound_ms(flops, 4.0 * (m * k + k * n + m * n), dtype)
+    design = DESIGN["matmul"][dtype]
     phase("kernel", kernel="matmul", case=list(MM_MAIN), dtype="float32",
-          default_tile=mm_kernel.hopper_tile(m, n),
+          design=repr(design), default_tile=mm_kernel.hopper_tile(m, n),
           tile_ms={t: round(v, 4) for t, v in tile_ms.items()},
           kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd:.4f}",
-          bound_by=bound_by,
-          tflops=f"{2.0 * m * n * k / kernel_ms / 1e9:.2f}")
+          bound_by=bound_by, bound_fp32_cuda_cores_ms=f"{bnd_fp32:.4f}",
+          tflops=f"{flops / kernel_ms / 1e9:.2f}")
+    del a, b
+    torch.cuda.empty_cache()
+
+    # bf16 at the same shape: the kernel against cuBLAS's bf16 product.
+    a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    b = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    err16 = check_close(f"matmul main {MM_MAIN} bf16",
+                        mm_kernel.matmul_tiled(a, b), mm_ref.matmul(a, b),
+                        atol=MM_RMS_TOL[torch.bfloat16] * k ** 0.5,
+                        rtol=MM_RMS_TOL[torch.bfloat16])
+    ms16 = cuda_ms(lambda: mm_kernel.matmul_tiled(a, b), reps=10, warmup=2)
+    plain16 = cuda_ms(lambda: mm_ref.matmul(a, b), reps=3, warmup=1)
+    lib16 = cuda_ms(lambda: torch.matmul(a, b), reps=10, warmup=2)
+    bnd16, by16 = bound_ms(flops, 2.0 * (m * k + k * n + m * n),
+                           torch.bfloat16)
+    design16 = DESIGN["matmul"][torch.bfloat16]
+    phase("kernel", kernel="matmul", case=list(MM_MAIN), dtype="bfloat16",
+          design=repr(design16), max_abs_err=f"{err16:.3e}",
+          kernel_ms=f"{ms16:.4f}", plain_ms=f"{plain16:.4f}",
+          library_ms=f"{lib16:.4f}", bound_ms=f"{bnd16:.4f}", bound_by=by16,
+          tflops=f"{flops / ms16 / 1e9:.2f}")
     del a, b
     torch.cuda.empty_cache()
     return {"name": "matmul", "route": "cuda",
@@ -563,10 +640,14 @@ def matmul_checks() -> dict:
             "replaces": "src/repro/kernels/matmul/kernel.py:46",
             "launches": None, "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "design": design,
             "shape": {"m": m, "n": n, "k": k, "dtype": "float32",
                       "tile": mm_kernel.hopper_tile(m, n)},
-            "tile_ms": tile_ms, "checks": checks}
+            "tile_ms": tile_ms,
+            "bf16": {"design": design16, "max_abs_err": err16, "ms": ms16,
+                     "plain_ms": plain16, "library_ms": lib16,
+                     "bound_ms": bnd16, "bound_by": by16},
+            "checks": checks}
 
 
 RMS_ROWS = (1, 100, 65536)

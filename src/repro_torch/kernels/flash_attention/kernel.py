@@ -70,7 +70,11 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D); Hq % Hkv == 0.
 
     window > 0 keeps keys with q_pos - window <= k_pos (on top of causal).
-    Returns a contiguous (B, Hq, S, D) tensor in q's dtype."""
+    Returns a contiguous (B, Hq, S, D) tensor in q's dtype.
+
+    On the card, bf16 inputs run on the tensor cores (mma.sync, scores and
+    softmax in fp32, P split into bf16 p_hi + p_lo for the product with V);
+    fp32 inputs run in fp32 on the CUDA cores."""
     global launches
     if q.device.type == "cpu":
         return ref.attention(q, k, v, sm_scale=sm_scale, causal=causal,

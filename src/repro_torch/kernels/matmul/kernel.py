@@ -20,7 +20,6 @@ DEFAULT_BN = 256
 DEFAULT_BK = 512
 TILES = (64, 128)              # square output tiles the source instantiates
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535            # row tiles ride grid.y
 _INT_MAX = 2 ** 31 - 1
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -67,7 +66,7 @@ def check_inputs(a, b, out_dtype) -> None:
                          f"{tuple(b.shape)}")
     if min(m, n, k) < 1:
         raise ValueError(f"empty product ({m}, {k}) @ ({k2}, {n})")
-    if max(m, n, k) > _INT_MAX or -(-m // min(TILES)) > _MAX_GRID_Y:
+    if max(m, n, k) > _INT_MAX:
         raise ValueError(f"product ({m}, {k}) @ ({k2}, {n}) above the "
                          f"kernel's index range")
 
@@ -86,10 +85,13 @@ def matmul_tiled(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
 
     ``bm``/``bn`` are the reference's TPU block shapes; on the card they
     choose one of the instantiated Hopper output tiles (``hopper_tile``).
-    ``bk`` is the TPU's VMEM depth along K and has no counterpart: the
-    Hopper tiles stream K through shared memory at their own depth (16 for
-    64 x 64, 8 for 128 x 128).  Every tile gives the same bits (each output
-    is one thread's fmaf chain over k in increasing order)."""
+    ``bk`` is the TPU's VMEM depth along K and has no counterpart: both
+    Hopper tiles stream K through shared memory in 64-deep slices.  The
+    products run on the tensor cores: bf16 mma.sync for bf16 inputs,
+    3xTF32 mma.sync (each element split into two TF32 parts, three
+    products) for fp32.  Every tile gives the same bits: each output takes
+    the same sequence of mma instructions over k in increasing order,
+    whatever the tile."""
     global launches
     out_dtype = out_dtype or a.dtype
     if bk < 1:

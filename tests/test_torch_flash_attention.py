@@ -6,6 +6,7 @@ On the CPU the port's wrapper takes its plain version; the CUDA kernel itself
 is held against that plain version by tests/test_torch_gpu.py (skipped
 without a card) and by chip_smoke.py.
 """
+import importlib.util
 import os
 import subprocess
 import sys
@@ -83,6 +84,22 @@ def test_cpu_tensors_take_plain_path_without_launching(s):
     want = ref.attention(q, k, v, sm_scale=80 ** -0.5, causal=True, window=8)
     assert torch.equal(got, want)
     assert kernel.launches == 0
+
+
+def test_single_rounding_variant_fits_the_kernel_source():
+    """scripts/flash_p_rounding.py measures the bf16 kernel against a copy
+    with P rounded once; its edits must still fit the kernel's source, and
+    leave no product with p_lo and no p_lo from the rounding residue."""
+    spec = importlib.util.spec_from_file_location(
+        "flash_p_rounding", ROOT / "scripts" / "flash_p_rounding.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    once = script.once_source(src)
+    assert "pl, b[" in src and "pl, b[" not in once
+    assert "- __bfloat162float(h" not in once
+    assert [c[0] for c in script.CASES] == ["window 1", "window 16",
+                                           "main path S=8192 w=4096"]
 
 
 def test_strided_views_match_contiguous():

@@ -40,11 +40,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# bf16: both sides round one fp32 result, so they differ by at most one bf16
-# unit (under 2^-7 of the value, inside rtol); chip_smoke.py says more.
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
-    (torch.bfloat16, {"atol": 1e-3, "rtol": 1e-2})], ids=["fp32", "bf16"])
+# bf16: the kernel rounds P to bf16 (split as p_hi + p_lo, ~16 bits) and the
+# output once; the plain version rounds only the output.  They differ by at
+# most one bf16 unit of the output (under 2^-7 of the value, inside rtol)
+# plus ~2^-16 of |v|; chip_smoke.py says more.
+FLASH_TOL = [(torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
+             (torch.bfloat16, {"atol": 1e-3, "rtol": 1e-2})]
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("s,d,hq,hkv,causal,window", [
     (1000, 80, 32, 8, True, 4096),      # ragged tail, window wider than S
     (512, 80, 32, 8, True, 64),         # the window bites
@@ -64,6 +68,49 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
     assert kernel.launches == 1
     want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=causal,
                          window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,d,hq,hkv,window,strided", [
+    (2, 512, 80, 32, 8, 1, False),      # two live keys a row
+    (2, 512, 80, 32, 8, 16, False),     # 17 live keys a row
+    (1, 4096, 80, 32, 8, 4096, True),   # the main path's (B,S,H,D) views
+    (2, 8, 64, 8, 2, 0, False),         # shorter than one key tile
+    (2, 72, 128, 8, 2, 0, True),        # one tile and a ragged second
+], ids=["window1", "window16", "s4096_strided", "s8", "s72_strided"])
+def test_kernel_matches_plain_version_at_edges(cuda_device, dtype, tol, b, s,
+                                               d, hq, hkv, window, strided):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def make(h):
+        if strided:
+            return torch.randn((b, s, h, d), generator=gen,
+                               device=cuda_device).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen,
+                           device=cuda_device).to(dtype)
+    q, k, v = make(hq), make(hkv), make(hkv)
+    kernel.launches = 0
+    got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=True,
+                     window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=True,
+                         window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
+def test_kernel_takes_views_without_16_byte_rows(cuda_device, dtype, tol):
+    """Rows 81 elements apart: the bf16 kernel stages such tiles with
+    element loads instead of 16-byte copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn((1, h, 300, 81), generator=gen,
+                           device=cuda_device).to(dtype)[..., :80]
+               for h in (8, 2, 2))
+    got = kernel.mha(q, k, v, sm_scale=80 ** -0.5, causal=True, window=64)
+    want = ref.attention(q, k, v, sm_scale=80 ** -0.5, causal=True,
+                         window=64)
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
@@ -152,6 +199,9 @@ KERNEL_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 @pytest.mark.parametrize("m,n,k", [
     (8, 8, 8), (100, 257, 1000), (64, 64, 200), (1024, 1024, 1024),
     (4095, 257, 129),
+    (256, 256, 8192),                   # deep: 3xTF32 against 5e-5 sqrt(k)
+    (129, 4097, 257),                   # no row a whole 16-byte chunk
+    (64, 64, 8),                        # the least k the op sends the kernel
 ])
 def test_matmul_kernel_matches_plain_version(cuda_device, dtype, m, n, k):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
