@@ -26,7 +26,10 @@ non-zero and prints no result):
                against the plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
                chunks 64/128/256 agreeing at 2e-4 / 2e-3, and the
-               decay-stability case finite.  matmul (fp32 and bf16):
+               decay-stability case finite; timed at mamba2's main shape
+               beside its 3xTF32 and fp32 CUDA-core bounds, with each of
+               its three passes timed by torch.profiler (the
+               "[kernel] ssd passes" line).  matmul (fp32 and bf16):
                the reference's 5e-5 * sqrt(k) / 5e-2 * sqrt(k)
                (tests/test_kernels.py:112-114) at edge shapes and the
                suite's 4096^3 and 8192^3, every instantiated tile giving
@@ -109,7 +112,8 @@ KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel,
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 # They hold for that card only: ``machine`` refuses any other.  "3xtf32" is
 # the rate of an fp32 product made of three TF32 products on the tensor
-# cores (495 TFLOP/s TF32), the way the matmul kernel computes fp32.
+# cores (495 TFLOP/s TF32), the way the matmul and SSD kernels compute
+# fp32.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               "3xtf32": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
@@ -145,8 +149,8 @@ BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
 BF16_GATED = {DANUBE: True, MAMBA2: False}
 PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32}
 # SSD kernel against ``ssd_chunked`` at the same chunk: the same algorithm
-# in fp32 with its sums in another order (64-key tiles, a warp scan for
-# the cumsum, the decay applied after the C.h product).
+# in fp32 with its sums in another order (64-deep 3xTF32 partials, a warp
+# scan for the cumsum, the decay applied after the C.h product).
 SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 SSD_EXACT_TOL = {"atol": 5e-4, "rtol": 5e-3}     # tests/test_kernels.py:181
 SSD_CHUNK_TOL = {"atol": 2e-4, "rtol": 2e-3}     # tests/test_kernels.py:198
@@ -159,7 +163,9 @@ MM_RMS_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 DESIGN = {"flash_attention": {torch.bfloat16: "mma.sync bf16 + cp.async",
                               torch.float32: "fp32 FMA, CUDA cores"},
           "matmul": {torch.float32: "3xTF32 mma.sync + cp.async",
-                     torch.bfloat16: "mma.sync bf16"}}
+                     torch.bfloat16: "mma.sync bf16"},
+          "ssd": {torch.float32: "3xTF32 mma.sync + cp.async, scores once "
+                                 "per 16 heads"}}
 
 
 def phase(label: str, **fields) -> None:
@@ -399,18 +405,16 @@ def flash_attention_checks() -> dict:
             "checks": checks}
 
 
-def ssd_bound_ms(b, s, h, p, n, chunk):
-    """The least time of one SSD scan: the work the function needs on the
-    live (j <= i) entries of each chunk, with C B^T once per chunk (it does
-    not depend on the head), against the fp32 CUDA-core peak; and x, y, dt,
-    a_log, b, c each moved once."""
+def ssd_work(b, s, h, p, n, chunk):
+    """The operations and bytes of one SSD scan: the work the function needs
+    on the live (j <= i) entries of each chunk, with C B^T once per chunk
+    (it does not depend on the head); x, y, dt, a_log, b, c each moved
+    once."""
     live = chunk * (chunk + 1) // 2
     per_chunk = 2 * live * n + h * (2 * live * p + 4 * chunk * n * p)
     flops = b * (s // chunk) * per_chunk
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n)
-    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return flops, nbytes
 
 
 def ssd_inputs(b, s, h, p, n, gen, *, model_a_log=False):
@@ -428,6 +432,33 @@ def ssd_inputs(b, s, h, p, n, gen, *, model_a_log=False):
     return x, dt, a_log, randn(b, s, n) / n ** 0.5, randn(b, s, n) / n ** 0.5
 
 
+SSD_PASSES = ("chunk_state", "state_passing", "chunk_scan")
+
+
+def ssd_pass_ms(args, chunk: int, reps: int = 10) -> dict:
+    """Device time of each of the SSD kernel's three passes, mean ms a call,
+    from torch.profiler's CUDA trace over ``reps`` calls; raises unless the
+    trace holds every pass ``reps`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    ssd_kernel.ssd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd_kernel.ssd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    us = dict.fromkeys(SSD_PASSES, 0.0)
+    count = dict.fromkeys(SSD_PASSES, 0)
+    for evt in prof.key_averages():
+        for name in SSD_PASSES:
+            if name in evt.key:
+                us[name] += evt.device_time_total
+                count[name] += evt.count
+    if any(count[name] != reps or us[name] <= 0 for name in SSD_PASSES):
+        raise AssertionError(f"the profiler saw passes {count} with device "
+                             f"time {us} over {reps} calls")
+    return {name: us[name] / reps / 1e3 for name in SSD_PASSES}
+
+
 SSD_CHECKS = [  # name, b, s, h, p, n, chunk
     ("chunk 64", 1, 2048, 16, 64, 128, 64),
     ("chunk 128", 1, 2048, 16, 64, 128, 128),
@@ -438,6 +469,24 @@ SSD_CHECKS = [  # name, b, s, h, p, n, chunk
 ]
 # The main path's call: one layer of the 8192-token mamba2-1.3b prefill.
 SSD_MAIN = ("main path S=8192", 1, PREFILL_LEN, 64, 64, 128, 256)
+
+
+def ssd_cases(gen) -> list:
+    """The ssd checks' inputs, (name, (x, dt, a_log, b, c), chunk) each, the
+    main path's call last."""
+    cases = [(name, ssd_inputs(b, s, h, p, n, gen), min(chunk, s))
+             for name, b, s, h, p, n, chunk in SSD_CHECKS]
+    # Decay stability (tests/test_kernels.py:200-210) at the nearest
+    # instantiated (N, P) = (16, 16): dt = 10, a_log = 2.
+    x, _, _, bm, cm = ssd_inputs(1, 128, 1, 16, 16, gen)
+    dt = torch.full((1, 128, 1), 10.0, device="cuda")
+    a_log = torch.full((1,), 2.0, device="cuda")
+    cases.append(("decay stability dt=10 a_log=2",
+                  (x, dt, a_log, bm * 4.0, cm * 4.0), 64))  # N(0, 1), as there
+    name, b, s, h, p, n, chunk = SSD_MAIN
+    cases.append((name, ssd_inputs(b, s, h, p, n, gen, model_a_log=True),
+                  chunk))
+    return cases
 
 
 def ssd_checks() -> dict:
@@ -455,23 +504,14 @@ def ssd_checks() -> dict:
                        "tol": SSD_TOL, "max_abs_err_exact": err_exact,
                        "tol_exact": SSD_EXACT_TOL})
         phase("kernel", kernel="ssd", case=repr(name), dtype="float32",
+              design=repr(DESIGN["ssd"][torch.float32]),
               max_abs_err=f"{err:.3e}", tol=SSD_TOL,
               max_abs_err_exact=f"{err_exact:.3e}", tol_exact=SSD_EXACT_TOL)
         return y, err
 
-    for name, b, s, h, p, n, chunk in SSD_CHECKS:
-        check(name, ssd_inputs(b, s, h, p, n, gen), min(chunk, s))
-
-    # Decay stability (tests/test_kernels.py:200-210) at the nearest
-    # instantiated (N, P) = (16, 16): dt = 10, a_log = 2.
-    x, _, _, bm, cm = ssd_inputs(1, 128, 1, 16, 16, gen)
-    bm, cm = bm * 4.0, cm * 4.0                   # N(0, 1), as there
-    dt = torch.full((1, 128, 1), 10.0, device="cuda")
-    a_log = torch.full((1,), 2.0, device="cuda")
-    check("decay stability dt=10 a_log=2", (x, dt, a_log, bm, cm), 64)
-
-    name, b, s, h, p, n, chunk = SSD_MAIN
-    args = ssd_inputs(b, s, h, p, n, gen, model_a_log=True)
+    *edges, (name, args, chunk) = ssd_cases(gen)
+    for case in edges:
+        check(*case)
     y, err = check(name, args, chunk)
     for other in (64, 128):
         chunk_err = check_close(f"ssd {name} chunk {other} vs {chunk}",
@@ -486,18 +526,31 @@ def ssd_checks() -> dict:
                         warmup=2)
     plain_ms = cuda_ms(lambda: ssd_ref.ssd_chunked(*args, chunk=chunk),
                        reps=3)
-    bound_ms, bound_by = ssd_bound_ms(b, s, h, p, n, chunk)
+    # The kernel's floor is its three TF32 products on the tensor cores; the
+    # fp32 CUDA-core bound (what an fp32 FMA kernel could reach) beside it.
+    _, b, s, h, p, n, _ = SSD_MAIN
+    flops, nbytes = ssd_work(b, s, h, p, n, chunk)
+    bnd, bound_by = bound_ms(flops, nbytes, "3xtf32")
+    bnd_fp32, _ = bound_ms(flops, nbytes, torch.float32)
+    design = DESIGN["ssd"][torch.float32]
     phase("kernel", kernel="ssd", case=repr(name), dtype="float32",
-          kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=None, bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+          design=repr(design), kernel_ms=f"{kernel_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=None,
+          bound_ms=f"{bnd:.4f}", bound_by=bound_by,
+          bound_fp32_cuda_cores_ms=f"{bnd_fp32:.4f}",
+          tflops=f"{flops / kernel_ms / 1e9:.2f}")
+    passes = ssd_pass_ms(args, chunk)
+    print("[kernel] ssd passes " + " ".join(
+        [f"case={name!r}"] + [f"{k}_ms={v:.4f}" for k, v in passes.items()]
+        + [f"sum_ms={sum(passes.values()):.4f}"]), flush=True)
     del args
     torch.cuda.empty_cache()
     return {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:78",
             "launches": None, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": bound_by,
             # no single PyTorch call computes the SSD scan
-            "library_ms": None,
+            "library_ms": None, "design": design, "passes_ms": passes,
             "shape": {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
                       "dtype": "float32"},
             "checks": checks}

@@ -48,6 +48,10 @@ def check_inputs(x, dt, a_log, b, c, chunk: int) -> None:
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if name in ("x", "b", "c") and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary: "
+                             f"the kernel copies its rows 16 bytes at a "
+                             f"time")
     if (n, p) not in STATE_HEAD_DIMS:
         raise ValueError(f"state dim N={n} with head dim P={p} has no kernel "
                          f"instantiation; instantiated (N, P): "

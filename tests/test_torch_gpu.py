@@ -137,14 +137,22 @@ def test_smoke_forward_on_card_matches_cpu(cuda_device):
 
 
 # The SSD kernel against the plain chunked version at the same chunk: the
-# same algorithm with sums in another order, fp32 throughout.
+# same algorithm with sums in another order, fp32 throughout; and against
+# the exact scan at the reference's tolerance (tests/test_kernels.py:181).
 SSD_TOL = {"atol": 1e-4, "rtol": 1e-4}
+SSD_EXACT_TOL = {"atol": 5e-4, "rtol": 5e-3}
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (1, 1024, 8, 64, 128, 256),         # mamba2-1.3b's dims, 4 chunks
     (2, 384, 4, 64, 128, 128),          # B=2, chunk 128
     (2, 200, 3, 16, 16, 256),           # mamba2-smoke's dims, s < chunk
+    (1, 512, 3, 64, 128, 256),          # fewer heads than a group of 16
+    (1, 512, 17, 64, 128, 128),         # a last group of one head
+    (1, 300, 5, 64, 128, 100),          # ragged chunk 100
+    (1, 200, 8, 64, 128, 200),          # chunk 200, s = 200
+    (2, 256, 9, 16, 16, 64),            # B=2, mamba2-smoke's dims, odd H
+    (1, 1024, 64, 64, 128, 256),        # mamba2-1.3b's dims and heads
 ])
 def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, n,
                                           chunk):
@@ -162,6 +170,8 @@ def test_ssd_kernel_matches_plain_version(cuda_device, b, s, h, p, n,
     assert ssd_kernel.launches == 1
     want = ssd_ref.ssd_chunked(x, dt, a_log, bm, cm, chunk=min(chunk, s))
     torch.testing.assert_close(got, want, **SSD_TOL)
+    torch.testing.assert_close(
+        got, ssd_ref.ssd_scan_ref(x, dt, a_log, bm, cm), **SSD_EXACT_TOL)
 
 
 def test_ssd_unsupported_dims_raise_on_card(cuda_device):

@@ -8,6 +8,9 @@ CUDA kernel itself is held against that plain version by
 tests/test_torch_gpu.py (skipped without a card) and by chip_smoke.py.
 Interpret-mode grids stay small (B * H * chunks <= 16).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -21,6 +24,7 @@ from repro.kernels.ssd import ref as jax_ref  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ssd import kernel, ref, ssd_scan  # noqa: E402
 
+ROOT = Path(__file__).resolve().parents[1]
 KERNEL_TOL = 1e-5   # fp32, port's chunked version vs the interpret kernel
 REF_TOL = {"atol": 5e-4, "rtol": 5e-3}   # chunked vs exact scan
                                          # (tests/test_kernels.py:181)
@@ -151,7 +155,9 @@ def _cpu_args(b=1, s=64, h=2, p=16, n=16):
      "P=8"),
     (lambda a: a.__setitem__(1, torch.zeros(1, 2, 64).transpose(1, 2)),
      ValueError, "dt must be contiguous"),
-], ids=["bf16", "c_shape", "head_dim_8", "strided_dt"])
+    (lambda a: a.__setitem__(3, torch.zeros(1025)[1:].view(1, 64, 16)),
+     ValueError, "b must start on a 16-byte boundary"),
+], ids=["bf16", "c_shape", "head_dim_8", "strided_dt", "unaligned_b"])
 def test_check_inputs_raises_on_what_the_kernel_does_not_take(change, error,
                                                               match):
     args = _cpu_args()
@@ -182,3 +188,18 @@ def test_kernel_source_is_found_and_hashed():
     src = (_build.CSRC / "ssd.cu").read_text()
     assert 'extern "C" int ssd_scan_fwd' in src
     assert "src/repro/kernels/ssd/kernel.py" in src
+
+
+def test_plain_tf32_variant_fits_the_kernel_source():
+    """scripts/ssd_variants.py measures the kernel against a copy of it in
+    plain TF32; its edits must still fit the kernel's source and leave the
+    hi.hi product alone."""
+    spec = importlib.util.spec_from_file_location(
+        "ssd_variants", ROOT / "scripts" / "ssd_variants.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    src = (_build.CSRC / "ssd.cu").read_text()
+    tf32 = script.tf32_source(src)
+    assert "mma_tf32(c, a_lo, b_hi);" in src
+    assert "mma_tf32(c, a_hi, b_hi);" in tf32
+    assert "a_lo, b_hi" not in tf32 and "a_hi, b_lo" not in tf32
