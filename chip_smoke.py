@@ -22,8 +22,10 @@ non-zero and prints no result):
                line naming the kernel's design (DESIGN).
                flash_attention: fp32 at 5e-5 (the reference's kernel
                tolerance, tests/test_kernels.py:22), bf16 at atol 1e-3 +
-               rtol 1e-2.  ssd (fp32 only, as the model sends it): 1e-4
-               against the plain chunked version, the reference's 5e-4 /
+               rtol 1e-2; head dims 64/80/128/256, and recurrentgemma-9b's
+               shape (D=256, MQA, window 2048) timed in both dtypes.
+               ssd (fp32 only, as the model sends it): 1e-4 against the
+               plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
                chunks 64/128/256 agreeing at 2e-4 / 2e-3, and the
                decay-stability case finite; timed at mamba2's main shape
@@ -32,8 +34,8 @@ non-zero and prints no result):
                "[kernel] ssd passes" line).  matmul (fp32 and bf16):
                the reference's 5e-5 * sqrt(k) / 5e-2 * sqrt(k)
                (tests/test_kernels.py:112-114) at edge shapes and the
-               suite's 4096^3 and 8192^3, every instantiated tile giving
-               the same bits, fp32 also against the fp64 product at the
+               suite's 4096^3 and 8192^3, every instantiated tile (four
+               fp32, six bf16) giving the same bits, fp32 also against the fp64 product at the
                same tolerance (cuBLAS's distance from it printed beside
                the kernel's); 8192^3 timed in fp32 (beside the fp32
                CUDA-core and the 3xTF32 bounds) and in bf16.  rmsnorm
@@ -42,12 +44,20 @@ non-zero and prints no result):
                leading-dims case.
    loop      - the paper's loop at the card's sizes, through
                ``launch.validate.validate_device``: calibrate_device
-               (measured parameters beside the datasheet h100.json values),
-               the validation suite (12 cases, among them the hand-written
-               matmul and rmsnorm), each case's measured, model and
-               roofline times, and four MAEs against roofline MAE.  Launch
-               counts read around it: matmul and rmsnorm as the suite
-               implies, flash attention and ssd 0.
+               (measured parameters beside the datasheet h100.json values;
+               run three times, each parameter's median and range
+               printed; the vector rate above half the fp32 peak and
+               below the peak), the validation suite (12 cases, among
+               them the hand-written matmul and rmsnorm), each case's
+               measured, model and roofline times, and four MAEs against
+               roofline MAE.  Launch counts read around it: matmul and
+               rmsnorm as the suite implies, flash attention and ssd 0.
+   tiles     - the paper's adaptive tile selection (§IV-B): at six GEMM
+               shapes, every instantiated matmul tile's model time
+               (``kernels/matmul/ops.select_blocks``) beside its measured
+               time, the model's pick, the measured best, the regret and
+               the rank correlation; every tile checked against the plain
+               version and bit for bit; matmul launches counted.
 4. prefill   - each model's main path: ``make_prefill`` at full width and
                depth (random weights from a seed) for one request of 8192
                tokens, with every kernel's launch count read around it;
@@ -90,7 +100,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel as fa_kernel, ref as fa_ref)
 from repro_torch.kernels.matmul import (  # noqa: E402
-    kernel as mm_kernel, matmul, ref as mm_ref)
+    kernel as mm_kernel, matmul, ops as mm_ops, ref as mm_ref)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     kernel as rms_kernel, ref as rms_ref, rmsnorm)
 from repro_torch.kernels.ssd import (  # noqa: E402
@@ -319,10 +329,78 @@ CHECKS = [  # name, b, hq, hkv, s, d, causal, window, strided
     ("window 1", 1, 32, 8, 512, 80, True, 1, True),      # two live keys a row
     ("window 16", 1, 32, 8, 512, 80, True, 16, True),
     ("S=72 D=128", 1, 8, 2, 72, 128, True, 0, False),   # under one query tile
+    ("D=256 ragged S=1000", 1, 16, 1, 1000, 256, True, 2048, False),
+    ("D=256 strided S=2048 w=256", 1, 16, 1, 2048, 256, True, 256, True),
 ]
 # The main path's call: one layer of the 8192-token prefill request, bf16.
 MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
         True)
+# recurrentgemma-9b's local attention at the same prompt length: MQA, head
+# dim 256, window 2048 (configs/recurrentgemma_9b.py).  No ported path runs
+# that model yet; its shape is checked and timed in fp32 and bf16.
+D256 = ("recurrentgemma-9b S=8192 w=2048 D=256", 1, 16, 1, PREFILL_LEN, 256,
+        True, 2048, True)
+
+
+def sdpa_ms(q, k, v, *, sm_scale, window, reps) -> float:
+    """Yardstick only (the port never calls it): PyTorch's fused attention
+    with the same boolean causal/window mask, on the kv heads repeated
+    beforehand."""
+    hq, hkv, s = q.shape[1], k.shape[1], q.shape[2]
+    ids = torch.arange(s, device="cuda")
+    mask = (ids[None, :] <= ids[:, None]) & (ids[None, :] >= ids[:, None]
+                                             - window)
+    k_rep = k.repeat_interleave(hq // hkv, dim=1)
+    v_rep = v.repeat_interleave(hq // hkv, dim=1)
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, attn_mask=mask, scale=sm_scale), reps=reps)
+
+
+def case_shape(spec) -> dict:
+    _, b, hq, hkv, s, d, causal, window, strided = spec
+    return {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": causal,
+            "window": window,
+            "layout": "strided (B,S,H,D)" if strided else "(B,H,S,D)"}
+
+
+def timed_case(spec, dtype, gen) -> dict:
+    """One attention case in ``dtype``: checked against the plain version,
+    timed beside its bound, the plain version's and SDPA's time; prints its
+    ``[kernel]`` line."""
+    name, b, hq, hkv, s, d, causal, window, strided = spec
+    q, k, v = attention_inputs(b, hq, hkv, s, d, dtype, strided, gen)
+    kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+    got = fa_kernel.mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tol = KERNEL_TOL[dtype]
+    err = check_close(f"flash_attention {name} {dtype}", got,
+                      fa_ref.attention(q, k, v, **kw), **tol)
+    del got
+    kernel_ms = cuda_ms(lambda: fa_kernel.mha(q, k, v, **kw), reps=10,
+                        warmup=2)
+    plain_ms = cuda_ms(lambda: fa_ref.attention(q, k, v, **kw), reps=3)
+    library_ms = sdpa_ms(q, k, v, sm_scale=kw["sm_scale"], window=window,
+                         reps=5)
+    bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, d, causal, window,
+                                            dtype)
+    extra = {}
+    if dtype == torch.bfloat16 and bound_by == "operations":
+        # The work the design issues: P V twice (p_hi, p_lo), 6 D a live
+        # pair.
+        extra["split_p_bound_ms"] = f"{bound_ms * 1.5:.4f}"
+    flops = attention_flops(b, hq, s, d, causal, window)
+    dt = str(dtype)[6:]
+    phase("kernel", kernel="flash_attention", case=repr(name), dtype=dt,
+          design=repr(DESIGN["flash_attention"][dtype]),
+          max_abs_err=f"{err:.3e}", tol=tol, kernel_ms=f"{kernel_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **extra,
+          tflops=f"{flops / kernel_ms / 1e9:.1f}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"case": name, "dtype": dt, "max_abs_err": err, "tol": tol,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def flash_attention_checks() -> dict:
@@ -351,58 +429,25 @@ def flash_attention_checks() -> dict:
             del q, k, v, out, want
             torch.cuda.empty_cache()
 
-    name, b, hq, hkv, s, d, causal, window, strided = MAIN
-    dtype = torch.bfloat16
-    q, k, v = attention_inputs(b, hq, hkv, s, d, dtype, strided, gen)
-    kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
-    out = fa_kernel.mha(q, k, v, **kw)
-    torch.cuda.synchronize()
-    want = fa_ref.attention(q, k, v, **kw)
-    err = check_close(f"flash_attention {name}", out, want,
-                      **KERNEL_TOL[dtype])
-    checks.append({"case": name, "dtype": "bfloat16", "max_abs_err": err,
-                   "tol": KERNEL_TOL[dtype]})
-    del out, want
-    kernel_ms = cuda_ms(lambda: fa_kernel.mha(q, k, v, **kw), reps=10,
-                        warmup=2)
-    plain_ms = cuda_ms(lambda: fa_ref.attention(q, k, v, **kw), reps=3)
-    # Yardstick only (the port never calls it): PyTorch's fused attention
-    # with the same boolean mask, on the kv heads repeated beforehand.
-    ids = torch.arange(s, device="cuda")
-    mask = (ids[None, :] <= ids[:, None]) & (ids[None, :] >= ids[:, None]
-                                             - window)
-    k_rep = k.repeat_interleave(hq // hkv, dim=1)
-    v_rep = v.repeat_interleave(hq // hkv, dim=1)
-    library_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k_rep, v_rep,
-                                                       attn_mask=mask,
-                                                       scale=kw["sm_scale"]),
-                         reps=5)
-    bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, d, causal, window,
-                                            dtype)
-    # The work the design issues: P V twice (p_hi, p_lo), 6 D a live pair.
-    split_bound_ms = bound_ms * 1.5 if bound_by == "operations" else bound_ms
-    flops = attention_flops(b, hq, s, d, causal, window)
-    design = DESIGN["flash_attention"][dtype]
-    phase("kernel", kernel="flash_attention", case=repr(name),
-          dtype="bfloat16", design=repr(design), max_abs_err=f"{err:.3e}",
-          tol=KERNEL_TOL[dtype], kernel_ms=f"{kernel_ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
-          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-          split_p_bound_ms=f"{split_bound_ms:.4f}",
-          tflops=f"{flops / kernel_ms / 1e9:.1f}")
-    del q, k, v, k_rep, v_rep, mask
-    torch.cuda.empty_cache()
+    main = timed_case(MAIN, torch.bfloat16, gen)
+    checks.append({k: main[k] for k in ("case", "dtype", "max_abs_err",
+                                        "tol")})
+    d256 = {"shape": case_shape(D256)}
+    for dtype in (torch.float32, torch.bfloat16):
+        case = timed_case(D256, dtype, gen)
+        d256[case["dtype"]] = {k: case[k] for k in (
+            "max_abs_err", "tol", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:100",
-            "launches": None, "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "design": design,
-            "shape": {"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
-                      "causal": causal, "window": window,
-                      "dtype": "bfloat16", "layout": "strided (B,S,H,D)"},
-            "checks": checks}
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "design": DESIGN["flash_attention"][torch.bfloat16],
+            "shape": {**case_shape(MAIN), "dtype": "bfloat16"},
+            "d256": d256, "checks": checks}
 
 
 def ssd_work(b, s, h, p, n, chunk):
@@ -572,6 +617,20 @@ def bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
+def same_bits_from_every_tile(what: str, a, b):
+    """Every instantiated tile for ``a``'s dtype on the same inputs: raises
+    unless all give the same bits; returns (the first tile's output, the
+    plain version's)."""
+    tiles = mm_kernel.TILES[a.dtype]
+    outs = [mm_kernel.matmul_tiled(a, b, bm=bm, bn=bn) for bm, bn in tiles]
+    torch.cuda.synchronize()
+    for tile, out in zip(tiles[1:], outs[1:]):
+        if not torch.equal(bits(out), bits(outs[0])):
+            raise AssertionError(f"{what}: tile {tile} differs in its bits "
+                                 f"from tile {tiles[0]}")
+    return outs[0], mm_ref.matmul(a, b)
+
+
 MM_CHECKS = [(8, 8, 8), (64, 64, 8), (100, 257, 1000), (129, 4097, 257),
              (4095, 4097, 129), (256, 256, 8192)]
 MM_PLAIN = (4, 512, 512)        # min(m, n, k) < 8: ops takes the plain version
@@ -584,24 +643,17 @@ def matmul_checks() -> dict:
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         tol = MM_RMS_TOL[dtype]
+        tiles = mm_kernel.TILES[dtype]
         for m, n, k in MM_CHECKS + MM_SUITE:
             a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
             b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
-            outs = {t: mm_kernel.matmul_tiled(a, b, bm=t, bn=t)
-                    for t in mm_kernel.TILES}
-            torch.cuda.synchronize()
-            first = outs[mm_kernel.TILES[0]]
-            for t, out in outs.items():
-                if not torch.equal(bits(out), bits(first)):
-                    raise AssertionError(f"matmul {(m, n, k)} {dtype}: tile "
-                                         f"{t} differs in its bits from "
-                                         f"tile {mm_kernel.TILES[0]}")
-            plain = mm_ref.matmul(a, b)
+            first, plain = same_bits_from_every_tile(
+                f"matmul {(m, n, k)} {dtype}", a, b)
             err = check_close(f"matmul {(m, n, k)} {dtype}", first, plain,
                               atol=tol * k ** 0.5, rtol=tol)
             check = {"case": [m, n, k], "dtype": str(dtype)[6:],
                      "max_abs_err": err, "tol": tol,
-                     "tiles_bit_identical": list(mm_kernel.TILES)}
+                     "tiles_bit_identical": [list(t) for t in tiles]}
             if dtype == torch.float32:
                 # A second witness: the fp64 product of the same inputs,
                 # which tells the kernel's error from cuBLAS's own.
@@ -617,11 +669,11 @@ def matmul_checks() -> dict:
                   dtype=str(dtype)[6:], design=repr(DESIGN["matmul"][dtype]),
                   max_abs_err=f"{err:.3e}",
                   atol=f"{tol * k ** 0.5:.3e}", rtol=tol,
-                  tiles_bit_identical=list(mm_kernel.TILES),
+                  tiles_bit_identical=len(tiles),
                   **{key: f"{check[key]:.3e}" for key in
                      ("max_abs_err_vs_fp64", "plain_max_abs_err_vs_fp64")
                      if key in check})
-            del a, b, outs, first, plain
+            del a, b, first, plain
         m, n, k = MM_PLAIN
         a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
         b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
@@ -643,10 +695,6 @@ def matmul_checks() -> dict:
     err = check_close(f"matmul main {MM_MAIN}", mm_kernel.matmul_tiled(a, b),
                       mm_ref.matmul(a, b), atol=MM_RMS_TOL[dtype] * k ** 0.5,
                       rtol=MM_RMS_TOL[dtype])
-    tile_ms = {t: cuda_ms(lambda t=t: mm_kernel.matmul_tiled(a, b, bm=t,
-                                                             bn=t),
-                          reps=5, warmup=1)
-               for t in mm_kernel.TILES}
     kernel_ms = cuda_ms(lambda: mm_kernel.matmul_tiled(a, b), reps=5,
                         warmup=1)
     plain_ms = cuda_ms(lambda: mm_ref.matmul(a, b), reps=5, warmup=1)
@@ -660,7 +708,6 @@ def matmul_checks() -> dict:
     design = DESIGN["matmul"][dtype]
     phase("kernel", kernel="matmul", case=list(MM_MAIN), dtype="float32",
           design=repr(design), default_tile=mm_kernel.hopper_tile(m, n),
-          tile_ms={t: round(v, 4) for t, v in tile_ms.items()},
           kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd:.4f}",
           bound_by=bound_by, bound_fp32_cuda_cores_ms=f"{bnd_fp32:.4f}",
@@ -696,7 +743,6 @@ def matmul_checks() -> dict:
             "library_ms": library_ms, "design": design,
             "shape": {"m": m, "n": n, "k": k, "dtype": "float32",
                       "tile": mm_kernel.hopper_tile(m, n)},
-            "tile_ms": tile_ms,
             "bf16": {"design": design16, "max_abs_err": err16, "ms": ms16,
                      "plain_ms": plain16, "library_ms": lib16,
                      "bound_ms": bnd16, "bound_by": by16},
@@ -775,45 +821,102 @@ def rmsnorm_checks() -> dict:
 
 # ------------------------------------------------------ phase: the loop
 
-def loop(entries: dict) -> None:
+# calibrate_device runs per loop phase: two alone, then validate_device's
+# own, so each parameter's spread between runs on one card is printed
+# beside the ladder (the package takes one calibration, as the reference).
+CALIBRATIONS = 3
+# The vector chain counts as FLOP-bound above this share of the fp32 peak.
+# At 128 flops a byte a bandwidth-bound run could pass the fp32 peak, so
+# HBM's rate bounds nothing; a chain that fell back to the memory system
+# (the reference's 4 FMAs: 1 flop a byte, ~3e12) or lost its fusion lands
+# far under the floor.  Sound runs on the H100 read 81-86% of the peak.
+VECTOR_FLOOR_SHARE = 0.5
+
+
+def measured_params(hw) -> dict:
+    return {"fp32_matrix_flops": hw.sustained_flops("fp32", matrix=True),
+            "fp32_vector_flops": hw.sustained_flops("fp32", matrix=False),
+            "hbm_bytes_per_s": hw.hbm_sustained_bw,
+            "launch_latency_s": hw.launch_latency_s}
+
+
+def check_physical(hw) -> None:
+    """Full-fp32 products cannot beat the CUDA cores' peak (a TF32 product
+    would); no stream beats HBM's rate; the vector chain is FLOP-bound: its
+    rate is above ``VECTOR_FLOOR_SHARE`` of the fp32 peak, and below the
+    peak (above it, the compiler removed work)."""
+    p = measured_params(hw)
+    for key, value in p.items():
+        if not (value > 0 and value < float("inf")):
+            raise AssertionError(f"measured {key} = {value}")
+    if p["fp32_matrix_flops"] > PEAK_FLOPS[torch.float32]:
+        raise AssertionError("fp32 GEMM faster than the fp32 peak: TF32 on?")
+    if p["hbm_bytes_per_s"] > HBM_BYTES_PER_S:
+        raise AssertionError("stream bandwidth above HBM's rate")
+    floor = VECTOR_FLOOR_SHARE * PEAK_FLOPS[torch.float32]
+    if not p["fp32_vector_flops"] > floor:
+        raise AssertionError(f"vector rate {p['fp32_vector_flops']:.4g} not "
+                             f"above {floor:.4g} ({VECTOR_FLOOR_SHARE} of "
+                             f"the fp32 peak): the chain is not FLOP-bound")
+    if p["fp32_vector_flops"] > PEAK_FLOPS[torch.float32]:
+        raise AssertionError("vector chain faster than the fp32 peak: the "
+                             "compiled chain lost work")
+
+
+def loop(entries: dict):
     """The paper's loop at the card's sizes, through the entry point a user
-    calls.  Records the matmul and rmsnorm launch counts of this run in
-    their entries."""
+    calls, after ``CALIBRATIONS - 1`` calibrations alone.  Records the
+    matmul and rmsnorm launch counts of this run in their entries; returns
+    the measured parameters the ladder used."""
     sz = microbench.CARD
     runs = 1 + sz.warmups + sz.repeats      # a first call, then the timed
     want = {"flash_attention": 0, "ssd": 0,
             "matmul": len(sz.gemm_kernels) * runs, "rmsnorm": runs}
     t0 = time.perf_counter()
     reset_launches()
+    calibrated, calib_secs = [], []
+    for _ in range(CALIBRATIONS - 1):
+        c0 = time.perf_counter()
+        calibrated.append(microbench.calibrate_device(quick=False))
+        torch.cuda.synchronize()
+        calib_secs.append(time.perf_counter() - c0)
+    v0 = time.perf_counter()
     hw, lad = validate_device(quick=False)
     torch.cuda.synchronize()
     launches = read_launches()
     secs = time.perf_counter() - t0
+    validate_secs = time.perf_counter() - v0
     check_launches("the loop", launches, want)
     for name in ("matmul", "rmsnorm"):
         entries[name]["launches"] = launches[name]
+    calibrated.append(hw)
+    for run in calibrated:
+        check_physical(run)
 
-    sheet = hardware.get("h100")
-    params = {
-        "fp32_matrix_flops": (hw.sustained_flops("fp32", matrix=True),
-                              sheet.sustained_flops("fp32", matrix=True)),
-        "fp32_vector_flops": (hw.sustained_flops("fp32", matrix=False),
-                              sheet.sustained_flops("fp32", matrix=False)),
-        "hbm_bytes_per_s": (hw.hbm_sustained_bw, sheet.hbm_sustained_bw),
-        "launch_latency_s": (hw.launch_latency_s, sheet.launch_latency_s),
-    }
-    for key, (measured, datasheet) in params.items():
-        if not (measured > 0 and measured < float("inf")):
-            raise AssertionError(f"measured {key} = {measured}")
+    sheet = measured_params(hardware.get("h100"))
+    for key, measured in measured_params(hw).items():
         phase("loop", parameter=key, measured=f"{measured:.6g}",
-              datasheet_h100=f"{datasheet:.6g}",
-              ratio=f"{measured / datasheet:.4f}")
-    # Physical limits: full-fp32 products cannot beat the CUDA cores' peak
-    # (a TF32 product would), and no stream beats HBM's rate.
-    if params["fp32_matrix_flops"][0] > PEAK_FLOPS[torch.float32]:
-        raise AssertionError("fp32 GEMM faster than the fp32 peak: TF32 on?")
-    if params["hbm_bytes_per_s"][0] > HBM_BYTES_PER_S:
-        raise AssertionError("stream bandwidth above HBM's rate")
+              datasheet_h100=f"{sheet[key]:.6g}",
+              ratio=f"{measured / sheet[key]:.4f}")
+    for key in sheet:
+        vals = sorted(measured_params(run)[key] for run in calibrated)
+        med = vals[len(vals) // 2]
+        phase("loop", spread=key, runs=len(vals), median=f"{med:.6g}",
+              min=f"{vals[0]:.6g}", max=f"{vals[-1]:.6g}",
+              range_pct=f"{(vals[-1] - vals[0]) / med * 100:.2f}",
+              values=[f"{measured_params(run)[key]:.6g}"
+                      for run in calibrated])
+    fpb = microbench.vector_chain_flops(1, sz.calib_vector_fmas) / 8.0
+    vec = measured_params(hw)["fp32_vector_flops"]
+    bw = measured_params(hw)["hbm_bytes_per_s"]
+    phase("loop", vector_chain_fmas=sz.calib_vector_fmas,
+          flops_per_byte=fpb, rate=f"{vec:.6g}",
+          bandwidth_ceiling=f"{fpb * bw:.6g}",
+          floor=f"{VECTOR_FLOOR_SHARE * PEAK_FLOPS[torch.float32]:.6g}",
+          fp32_peak=f"{PEAK_FLOPS[torch.float32]:.6g}",
+          share_of_peak=f"{vec / PEAK_FLOPS[torch.float32]:.4f}",
+          calibrate_seconds=[round(t, 1) for t in calib_secs],
+          validate_device_seconds=f"{validate_secs:.1f}")
 
     if len(lad.suite) != 12:
         raise AssertionError(f"suite has {len(lad.suite)} cases, want 12")
@@ -834,6 +937,105 @@ def loop(entries: dict) -> None:
     phase("loop", launches=launches, seconds=f"{secs:.1f}",
           derived=repr(lad.derived()))
     torch.cuda.empty_cache()
+    return hw
+
+
+# ------------------------------------------------------ phase: tile selection
+
+# The paper's adaptive tile selection (§IV-B) on the card: the loop's
+# gemm_kernel sizes, and h2o-danube-1.8b's prefill projections at S = 8192
+# (q/o (2560, 2560), MLP up (2560, 6912), down (6912, 2560); the model runs
+# them through torch.matmul, as the reference through einsum: here they are
+# only shapes to pick tiles for).
+TILE_SHAPES = [((4096, 4096, 4096), torch.float32),
+               ((8192, 8192, 8192), torch.float32),
+               ((8192, 8192, 8192), torch.bfloat16),
+               ((PREFILL_LEN, 2560, 2560), torch.bfloat16),
+               ((PREFILL_LEN, 6912, 2560), torch.bfloat16),
+               ((PREFILL_LEN, 2560, 6912), torch.bfloat16)]
+TILE_REPS, TILE_WARMUP = 5, 1
+
+
+def ranks(xs) -> list:
+    """Ranks from 1, ties given their mean rank."""
+    order = sorted(range(len(xs)), key=lambda i: xs[i])
+    out = [0.0] * len(xs)
+    i = 0
+    while i < len(order):
+        j = i
+        while j + 1 < len(order) and xs[order[j + 1]] == xs[order[i]]:
+            j += 1
+        for idx in order[i:j + 1]:
+            out[idx] = (i + j) / 2.0 + 1.0
+        i = j + 1
+    return out
+
+
+def rank_correlation(xs, ys) -> float:
+    """Spearman's rho: Pearson's correlation of the ranks."""
+    rx, ry = ranks(xs), ranks(ys)
+    mx, my = sum(rx) / len(rx), sum(ry) / len(ry)
+    cov = sum((a - mx) * (b - my) for a, b in zip(rx, ry))
+    var = (sum((a - mx) ** 2 for a in rx) * sum((b - my) ** 2 for b in ry))
+    return cov / var ** 0.5 if var > 0 else float("nan")
+
+
+def tile_selection(measured_hw, entries: dict) -> None:
+    """For each shape, the model's price of every instantiated tile
+    (``select_blocks``: fp32 on the measured parameters, bf16 on the
+    datasheet file, which ``calibrate_device`` does not measure) beside the
+    tile's time (CUDA events, mean of ``TILE_REPS`` after a warm-up); every
+    tile checked against the plain version and bit for bit against the
+    others.  Regret: the measured time of the model's pick over the best
+    measured time, minus 1.  Nothing is gated on it."""
+    gen = generator(SEED + 5, "cuda")
+    sheet = hardware.get("h100")
+    want = sum(len(mm_kernel.TILES[dtype]) * (1 + TILE_WARMUP + TILE_REPS)
+               for _, dtype in TILE_SHAPES)
+    reset_launches()
+    summary = []
+    for (m, n, k), dtype in TILE_SHAPES:
+        precision = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+        hw = measured_hw if dtype == torch.float32 else sheet
+        pick, costs = mm_ops.select_blocks(m, n, k, precision=precision,
+                                           hw=hw)
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        what = f"tiles {(m, n, k)} {precision}"
+        out, plain = same_bits_from_every_tile(what, a, b)
+        tol = MM_RMS_TOL[dtype]
+        err = check_close(what, out, plain, atol=tol * k ** 0.5, rtol=tol)
+        del out, plain
+        blocks = list(costs)
+        ms = [cuda_ms(lambda bm=bm, bn=bn: mm_kernel.matmul_tiled(
+                  a, b, bm=bm, bn=bn), reps=TILE_REPS, warmup=TILE_WARMUP)
+              for bm, bn, _ in blocks]
+        model_us = [costs[c] * 1e6 for c in blocks]
+        for c, mod, meas in zip(blocks, model_us, ms):
+            phase("tiles", shape=[m, n, k], dtype=precision,
+                  tile=f"{c[0]}x{c[1]}x{c[2]}", model_us=f"{mod:.1f}",
+                  measured_us=f"{meas * 1e3:.1f}")
+        best = blocks[min(range(len(ms)), key=ms.__getitem__)]
+        regret = ms[blocks.index(pick)] / min(ms) - 1.0
+        rho = rank_correlation(model_us, ms)
+        phase("tiles", shape=[m, n, k], dtype=precision, params=hw.name,
+              model_pick=f"{pick[0]}x{pick[1]}", measured_best=f"{best[0]}x"
+              f"{best[1]}", regret=f"{regret:.4f}", rank_corr=f"{rho:.3f}",
+              max_abs_err=f"{err:.3e}", tiles_bit_identical=len(blocks))
+        # The kernels line carries measured times only; the model's prices
+        # and what follows from them stay on the [tiles] lines.
+        summary.append({"shape": [m, n, k], "dtype": precision,
+                        "measured_ms": dict(zip([f"{c[0]}x{c[1]}"
+                                                 for c in blocks], ms)),
+                        "measured_best": list(best[:2])})
+        del a, b
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    check_launches("tile selection", launches,
+                   {"flash_attention": 0, "ssd": 0, "matmul": want,
+                    "rmsnorm": 0})
+    phase("tiles", launches=launches)
+    entries["matmul"]["tile_selection"] = summary
 
 
 # ----------------------------------------------------------------- phase 4
@@ -976,7 +1178,8 @@ def main() -> int:
     entries = {"flash_attention": flash_attention_checks(),
                "ssd": ssd_checks(), "matmul": matmul_checks(),
                "rmsnorm": rmsnorm_checks()}
-    loop(entries)
+    measured_hw = loop(entries)
+    tile_selection(measured_hw, entries)
     for arch in (DANUBE, MAMBA2):
         prefill_requests(arch, entries)
         generation_request(arch)

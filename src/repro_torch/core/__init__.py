@@ -15,7 +15,12 @@ Public API:
     blackwell / cdna3 / tpu / generic          per-architecture models
     calibrate.Calibration / fit_*              disclosed multipliers
     validate.validate_suite                    MAE harness
+    segments.predict_app                       multi-segment applications
     collectives.MeshSpec / collective_time     mesh collective costs
+    autotune.select_plan / select_tile         model-driven plan and tile
+                                               selection
+    suites                                     the paper's published suites
+                                               (Tables VI, X, XI, XII)
     sweep.SweepEngine                          batched + memoized prediction
     workload.WorkloadTable                     columnar sweep batches
     workload.LatticeSpec                       lazy sweep lattices (chunked)
@@ -24,15 +29,17 @@ Public API:
     parallel.reduce_sharded                    multi-worker sweep pricing
     microbench.calibrate_device                real card microbenchmarks
 
-Not ported yet (ROADMAP.md, Queue A): ``autotune``, ``segments``,
-``suites``.
+``autotune``'s defaults name ``TPU_V5E``, as the reference's do: a caller
+on the card passes ``hw`` (``kernels/matmul/ops.select_blocks`` does).
+``suites`` holds the paper's published and reconstructed tables for B200,
+MI300A, H200 and MI250X; no number in it was measured on this card.
 """
-from . import (blackwell, cache, calibrate, cdna3, collectives, generic,
-               hardware, microbench, parallel, predict, roofline, sweep, tpu,
-               validate, workload)
+from . import (autotune, blackwell, cache, calibrate, cdna3, collectives,
+               generic, hardware, microbench, parallel, predict, roofline,
+               segments, sweep, tpu, validate, workload)
 
 __all__ = [
-    "blackwell", "cache", "calibrate", "cdna3", "collectives", "generic",
-    "hardware", "microbench", "parallel", "predict", "roofline", "sweep",
-    "tpu", "validate", "workload",
+    "autotune", "blackwell", "cache", "calibrate", "cdna3", "collectives",
+    "generic", "hardware", "microbench", "parallel", "predict", "roofline",
+    "segments", "sweep", "tpu", "validate", "workload",
 ]

@@ -28,6 +28,7 @@ Entry points take ``device=None`` for the card and raise without one;
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Tuple
 
@@ -103,6 +104,7 @@ class Sizes:
     calib_gemm_n: int            # measure_matmul_flops
     calib_stream_bytes: int      # measure_stream_bandwidth
     calib_vector_n: int          # measure_vector_flops
+    calib_vector_fmas: int       # its chain's length, FMAs an element
     repeats: int                 # device_suite
     warmups: int
     vector_n: int                # vec_copy, vec_add, reduction
@@ -118,7 +120,8 @@ class Sizes:
 # quick=True: the reference's quick sizes (the CPU tests), plus small cases
 # of the two hand-written kernels.
 QUICK = Sizes(calib_repeats=7, calib_gemm_n=512, calib_stream_bytes=1 << 24,
-              calib_vector_n=1 << 20, repeats=7, warmups=2,
+              calib_vector_n=1 << 20, calib_vector_fmas=4, repeats=7,
+              warmups=2,
               vector_n=1 << 22, transpose_n=1024, gemms=(256, 512),
               gemm_kernels=(256,), poly_n=1 << 20, stencil_n=512,
               rmsnorm_rows=1024, rmsnorm_d=256)
@@ -126,9 +129,14 @@ QUICK = Sizes(calib_repeats=7, calib_gemm_n=512, calib_stream_bytes=1 << 24,
 # well above the card's 50 MB L2: vectors of 1<<26 fp32 (256 MB), transpose
 # and stencil grids of 8192^2 (256 MB), rmsnorm 65536 x 2560 (danube's
 # d_model; 671 MB in).  The GEMMs span 2048-8192, where a product is
-# operation-bound on the card.
+# operation-bound on the card.  The vector-FLOP chain is 512 FMAs an
+# element: 1024 flops per 8 bytes moved, 128 flops a byte, over 5x the
+# card's ridge (67e12 FLOP/s fp32 over 3.35e12 B/s is 20), so the CUDA
+# cores and not HBM bound it; the reference's 4 FMAs (1 flop a byte) would
+# measure HBM's rate there.
 CARD = Sizes(calib_repeats=DEFAULT_REPEATS, calib_gemm_n=4096,
-             calib_stream_bytes=1 << 28, calib_vector_n=1 << 26, repeats=30,
+             calib_stream_bytes=1 << 28, calib_vector_n=1 << 26,
+             calib_vector_fmas=512, repeats=30,
              warmups=10, vector_n=1 << 26, transpose_n=8192,
              gemms=(2048, 4096, 8192), gemm_kernels=(4096, 8192),
              poly_n=1 << 26, stencil_n=8192, rmsnorm_rows=65536,
@@ -216,24 +224,34 @@ def measure_launch_latency(*, repeats: int = 50, warmups: int = 10,
     return _timed(lambda: x * 2.0, dev, repeats=repeats, warmups=warmups)
 
 
-def _vector_chain(v):
-    for _ in range(4):
+def _vector_chain(v, fmas: int):
+    for _ in range(fmas):
         v = v * 1.0001 + 0.5
     return v
 
 
-def measure_vector_flops(n: int = 1 << 22, *,
+def vector_chain_flops(n: int, fmas: int) -> float:
+    """Flops of one pass of the vector chain: two an FMA, ``fmas`` of them
+    on each of ``n`` elements."""
+    return 2.0 * fmas * n
+
+
+def measure_vector_flops(n: int = 1 << 22, *, fmas: int = 4,
                          repeats: int = DEFAULT_REPEATS,
                          warmups: int = DEFAULT_WARMUPS,
                          device: DeviceLike = None) -> float:
-    """Non-matrix FLOP throughput (fused elementwise chain, 8 flops/elem,
-    one compiled program)."""
+    """Non-matrix FLOP throughput: a fused elementwise chain of ``fmas``
+    dependent multiply-adds on each of ``n`` fp32 elements, one compiled
+    program that reads and writes each element once (the reference's chain
+    is 4 FMAs, 8 flops an element).  The rate is counted from the chain's
+    own length, ``vector_chain_flops(n, fmas) / t``."""
     dev = resolve_device(device)
     x = torch.ones((n,), dtype=torch.float32, device=dev)
-    f = compiled(_vector_chain)
+    # The length is a constant of the compiled program (the loop unrolls).
+    f = compiled(functools.partial(_vector_chain, fmas=fmas))
     _synced(lambda: f(x), dev)()                       # compile
     t = _timed(lambda: f(x), dev, repeats=repeats, warmups=warmups)
-    return 8.0 * n / t
+    return vector_chain_flops(n, fmas) / t
 
 
 # The card ``hwdata/h100.json`` describes: the SXM5 H100 (HBM3, 132 SMs).
@@ -278,7 +296,8 @@ def calibrate_device(*, quick: bool = True,
     mat = measure_matmul_flops(sz.calib_gemm_n, repeats=reps, device=dev)
     bw = measure_stream_bandwidth(sz.calib_stream_bytes, repeats=reps,
                                   device=dev)
-    vec = measure_vector_flops(sz.calib_vector_n, repeats=reps, device=dev)
+    vec = measure_vector_flops(sz.calib_vector_n, fmas=sz.calib_vector_fmas,
+                               repeats=reps, device=dev)
     launch = measure_launch_latency(device=dev)
 
     hw = base.with_updates(

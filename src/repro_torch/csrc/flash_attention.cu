@@ -41,6 +41,13 @@
 //   * for head dims up to 80 the kernel is held to 128 registers, so two
 //     blocks (16 warps, 2 x 66 KB of shared memory at D = 80) share an SM
 //     and one block's softmax overlaps the other's products;
+//   * at D = 256 (recurrentgemma-9b) a warp's 16 x 256 O accumulator alone
+//     is 128 fp32 registers a thread, so the key tiles are 16 keys (S is 8
+//     registers, not 32): with 32-key tiles the kernel needs 255 registers
+//     and spills 40 bytes.  The tile copy loop is left rolled there (a
+//     few registers fewer, and faster on the card than unrolled:
+//     scripts/kernel_variants.py).  One block of 8 warps runs an SM (Q and
+//     two K/V stages: 101,376 bytes of shared memory);
 //   * P is split into bf16 p_hi + p_lo and multiplies V twice.  P rounded
 //     once to bf16 (8 bits) moves rows with few live keys by up to a bf16
 //     unit of |v|, past the 1e-3 + 1e-2 |out| gate; the split keeps ~16
@@ -53,10 +60,11 @@
 //   the tiles with element loads instead of cp.async.
 //
 // fp32 (`attn_fwd_f32`) keeps the reference's 5e-5 on the CUDA cores (TF32
-// would not): 64 query rows a block, two threads a row, each holding half
-// of its row's q and accumulator in registers in 4-wide pieces, a loop over
-// 32-key fp32 tiles in static shared memory, the two half dot products
-// meeting through one warp shuffle.
+// would not): 64 query rows a block, two threads a row (four at D = 256),
+// each holding its share of the row's q and accumulator in registers in
+// 4-wide pieces, a loop over 32-key fp32 tiles (16 at D = 256, so the two
+// tiles stay within 48 KB of static shared memory) in shared memory, the
+// partial dot products meeting through warp shuffles.
 //
 // Left for later: wgmma fed by TMA (the only way to the full bf16 rate),
 // and packing a GQA group's q heads into one block so each K/V tile is
@@ -79,15 +87,20 @@ struct Strides {
 // ------------------------------------------------------ bf16, tensor cores
 
 constexpr int TC_BQ = 128;             // query rows per block, 16 per warp
-constexpr int TC_BKV = 64;             // keys per K / V tile
 constexpr int TC_THREADS = 256;        // 8 warps
 constexpr int TC_PAD = 8;              // 16 bytes of padding per smem row
 
 using bf16 = __nv_bfloat16;
 
 template <int D>
+__host__ __device__ constexpr int tc_bkv() {  // keys per K / V tile
+  return D > 128 ? 16 : 64;
+}
+
+template <int D>
 constexpr int tc_smem_bytes() {        // Q, then K and V two stages each
-  return (TC_BQ + 4 * TC_BKV) * (D + TC_PAD) * static_cast<int>(sizeof(bf16));
+  return (TC_BQ + 4 * tc_bkv<D>()) * (D + TC_PAD) *
+         static_cast<int>(sizeof(bf16));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -149,7 +162,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   constexpr int LD = D + TC_PAD;
   if (vec) {
     constexpr int CPR = D / 8;         // 16-byte chunks per row
-#pragma unroll
+#pragma unroll (D > 128 ? 1 : 8)
     for (int c = tid; c < ROWS * CPR; c += TC_THREADS) {
       const int r = c / CPR;
       const int ch = c - r * CPR;
@@ -187,12 +200,13 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + TC_PAD;
   constexpr int KSTEPS = D / 16;       // k-steps of Q K^T
   constexpr int DT = D / 8;            // 8-wide column tiles of O
-  constexpr int NT = TC_BKV / 8;       // 8-wide key tiles of S
+  constexpr int BKV = tc_bkv<D>();     // keys per K / V tile
+  constexpr int NT = BKV / 8;          // 8-wide key tiles of S
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
   bf16* sk = sq + TC_BQ * LD;
-  bf16* sv = sk + 2 * TC_BKV * LD;
+  bf16* sv = sk + 2 * BKV * LD;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -211,12 +225,12 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q_last = min(q_start + TC_BQ, seq_len) - 1;
   const int k_lo = window > 0 ? max(0, q_start - window) : 0;
   const int k_hi = causal ? q_last : seq_len - 1;
-  const int t_first = k_lo / TC_BKV;
-  const int t_last = k_hi / TC_BKV;
+  const int t_first = k_lo / BKV;
+  const int t_last = k_hi / BKV;
 
   load_rows<TC_BQ, D>(sq, qp, q_start, qs.s, seq_len, vec, tid);
-  load_rows<TC_BKV, D>(sk, kp, t_first * TC_BKV, ks.s, seq_len, vec, tid);
-  load_rows<TC_BKV, D>(sv, vp, t_first * TC_BKV, vs.s, seq_len, vec, tid);
+  load_rows<BKV, D>(sk, kp, t_first * BKV, ks.s, seq_len, vec, tid);
+  load_rows<BKV, D>(sv, vp, t_first * BKV, vs.s, seq_len, vec, tid);
   cp_async_commit();
 
   const int qw0 = q_start + 16 * warp; // this warp's rows: qw0 .. qw0 + 15
@@ -233,9 +247,9 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int buf = (tile - t_first) & 1;
     if (tile < t_last) {               // the next tile, into the other stage
       const int nb = buf ^ 1;
-      load_rows<TC_BKV, D>(sk + nb * TC_BKV * LD, kp, (tile + 1) * TC_BKV,
+      load_rows<BKV, D>(sk + nb * BKV * LD, kp, (tile + 1) * BKV,
                            ks.s, seq_len, vec, tid);
-      load_rows<TC_BKV, D>(sv + nb * TC_BKV * LD, vp, (tile + 1) * TC_BKV,
+      load_rows<BKV, D>(sv + nb * BKV * LD, vp, (tile + 1) * BKV,
                            vs.s, seq_len, vec, tid);
       cp_async_commit();
       cp_async_wait<1>();
@@ -244,12 +258,12 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();                   // this tile (and Q) landed for all
 
-    const int k0 = tile * TC_BKV;
+    const int k0 = tile * BKV;
     const bool sees = qw0 < seq_len && !(causal && k0 > qw1) &&
-                      !(window > 0 && k0 + TC_BKV - 1 < qw0 - window);
+                      !(window > 0 && k0 + BKV - 1 < qw0 - window);
     if (sees) {
-      const bf16* kt = sk + buf * TC_BKV * LD;
-      const bf16* vt = sv + buf * TC_BKV * LD;
+      const bf16* kt = sk + buf * BKV * LD;
+      const bf16* vt = sv + buf * BKV * LD;
 
       float s[NT][4];
 #pragma unroll
@@ -273,8 +287,8 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
       // Scale into log2 units; mask only where the tile straddles an edge.
-      const bool edge = k0 + TC_BKV - 1 >= seq_len ||
-                        (causal && k0 + TC_BKV - 1 > qw0) ||
+      const bool edge = k0 + BKV - 1 >= seq_len ||
+                        (causal && k0 + BKV - 1 > qw0) ||
                         (window > 0 && k0 < qw1 - window);
       uint32_t live = 0xffffffffu;
 #pragma unroll
@@ -321,7 +335,7 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       float p_sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < TC_BKV / 16; ++kk) {
+      for (int kk = 0; kk < BKV / 16; ++kk) {
         // A fragments of P for keys 16 kk .. 16 kk + 15: key tiles 2 kk and
         // 2 kk + 1, rows g (elements 0, 1) and g + 8 (elements 2, 3).
         uint32_t ph[4], pl[4];
@@ -412,40 +426,52 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int batch,
 // ------------------------------------------------------------ fp32, CUDA cores
 
 constexpr int BLOCK_Q = 64;            // query rows per block
-constexpr int BLOCK_KV = 32;           // keys per shared-memory tile (= bits of the live mask)
-constexpr int THREADS = 2 * BLOCK_Q;   // two threads per query row
+
+// Threads a query row and keys a shared-memory tile (at most 32: the bits
+// of the live mask), by head dim: a thread holds D / TPR of q and of the
+// accumulator; the two tiles take 2 BKV D 4 bytes of static shared memory.
+template <int D> struct F32Tile {
+  static constexpr int TPR = D > 128 ? 4 : 2;
+  static constexpr int BKV = D > 128 ? 16 : 32;
+  static constexpr int THREADS = TPR * BLOCK_Q;
+};
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int seq_len,
              int group, Strides qs, Strides ks, Strides vs, float sm_scale,
              int causal, int window) {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  constexpr int HALF = D / 2;          // dims owned by one thread
-  constexpr int PIECES = D / 8;        // thread `half` owns dims [8c + 4*half, 8c + 4*half + 4)
+  constexpr int TPR = F32Tile<D>::TPR;
+  constexpr int BLOCK_KV = F32Tile<D>::BKV;
+  constexpr int THREADS = F32Tile<D>::THREADS;
+  static_assert(D % (4 * TPR) == 0, "head dim must split into 4-wide pieces");
+  constexpr int OWN = D / TPR;         // dims owned by one thread
+  constexpr int PIECES = D / (4 * TPR);
+  constexpr int STRIDE = 4 * TPR;      // thread `part` owns dims
+                                       // [STRIDE c + 4 part, STRIDE c + 4 part + 4)
 
   __shared__ __align__(16) float k_tile[BLOCK_KV * D];
   __shared__ __align__(16) float v_tile[BLOCK_KV * D];
 
   const int tid = threadIdx.x;
-  const int half = tid & 1;
+  const int part = tid % TPR;
   const int bi = blockIdx.z;
   const int hi = blockIdx.y;
   const int q_start = blockIdx.x * BLOCK_Q;
-  const int qpos = q_start + (tid >> 1);
+  const int qpos = q_start + tid / TPR;
 
   const float* qp = q + bi * qs.b + hi * qs.h;
   const float* kp = k + bi * ks.b + (hi / group) * ks.h;
   const float* vp = v + bi * vs.b + (hi / group) * vs.h;
 
-  float qr[HALF];
-  float acc[HALF];
+  float qr[OWN];
+  float acc[OWN];
 #pragma unroll
   for (int c = 0; c < PIECES; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = 8 * c + 4 * half + e;
+      const int d = STRIDE * c + 4 * part + e;
       qr[4 * c + e] = qpos < seq_len ? qp[qpos * qs.s + d] : 0.f;
       acc[4 * c + e] = 0.f;
     }
@@ -476,17 +502,18 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float m_cur = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BLOCK_KV; ++j) {
-      const float* kr = k_tile + j * D + 4 * half;
+      const float* kr = k_tile + j * D + 4 * part;
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < PIECES; ++c) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + 8 * c);
+        const float4 kk = *reinterpret_cast<const float4*>(kr + STRIDE * c);
         dot = fmaf(qr[4 * c + 0], kk.x, dot);
         dot = fmaf(qr[4 * c + 1], kk.y, dot);
         dot = fmaf(qr[4 * c + 2], kk.z, dot);
         dot = fmaf(qr[4 * c + 3], kk.w, dot);
       }
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      if constexpr (TPR == 4) dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int key = k_start + j;
       const bool ok = key < seq_len && (!causal || key <= qpos) &&
                       (window <= 0 || key >= qpos - window);
@@ -505,13 +532,13 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = alpha * l + p_sum;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) acc[i] *= alpha;
+    for (int i = 0; i < OWN; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BLOCK_KV; ++j) {
-      const float* vr = v_tile + j * D + 4 * half;
+      const float* vr = v_tile + j * D + 4 * part;
 #pragma unroll
       for (int c = 0; c < PIECES; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + 8 * c);
+        const float4 vv = *reinterpret_cast<const float4*>(vr + STRIDE * c);
         acc[4 * c + 0] = fmaf(s[j], vv.x, acc[4 * c + 0]);
         acc[4 * c + 1] = fmaf(s[j], vv.y, acc[4 * c + 1]);
         acc[4 * c + 2] = fmaf(s[j], vv.z, acc[4 * c + 2]);
@@ -529,7 +556,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < PIECES; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        op[8 * c + 4 * half + e] = acc[4 * c + e] / denom;
+        op[STRIDE * c + 4 * part + e] = acc[4 * c + e] / denom;
       }
     }
   }
@@ -541,7 +568,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                Strides ks, Strides vs, float sm_scale, int causal, int window,
                cudaStream_t stream) {
   const dim3 grid((seq_len + BLOCK_Q - 1) / BLOCK_Q, heads_q, batch);
-  attn_fwd_f32<D><<<grid, THREADS, 0, stream>>>(
+  attn_fwd_f32<D><<<grid, F32Tile<D>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), seq_len, group,
       qs, ks, vs, sm_scale, causal, window);
@@ -588,6 +615,9 @@ extern "C" int flash_attention_fwd(
                         ks, vs, sm_scale, causal, window, st);
     case 128:
       return launch<128>(dtype, q, k, v, o, batch, heads_q, group, seq_len,
+                         qs, ks, vs, sm_scale, causal, window, st);
+    case 256:
+      return launch<256>(dtype, q, k, v, o, batch, heads_q, group, seq_len,
                          qs, ks, vs, sm_scale, causal, window, st);
     default:
       return -1;

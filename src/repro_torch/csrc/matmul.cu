@@ -29,18 +29,34 @@
 //     4.5e-3 the reference allows.  So for fp32 each 64-deep slice is summed on
 //     the tensor cores into a fresh partial, which is then added to the
 //     running sum with fp32 adds that round to nearest;
-//   * a block owns a BM x BN output tile (128 x 128 with 8 warps of 64 x 32,
-//     or 64 x 64 with 4 warps of 32 x 32) and walks K in BK = 64 slices
+//   * a block owns a BM x BN output tile and walks K in BK = 64 slices
 //     through a 3-stage ring of shared memory filled by 16-byte cp.async
 //     copies, so two slices are in flight while one is multiplied (one
-//     __syncthreads a slice).  Rows are padded (A by 16 bytes, B by 32
-//     bytes fp32 / 16 bytes bf16) so the fragment reads hit no bank twice.
-//     Where a row of A or B is not a whole number of 16-byte chunks (K or
-//     N not a multiple of 4 fp32 / 8 bf16, e.g. K = 257), the same kernel
+//     __syncthreads a slice).  Every warp owns a 32- or 64-row by 32-column
+//     piece of the tile.  The tiles, with their warps (rows x columns) and
+//     shared memory (fp32 / bf16 inputs):
+//       64 x 64    2 x 2 warps of 32 x 32    107,520 / 55,296 bytes
+//       64 x 128   1 x 4 warps of 64 x 32    156,672 / 79,872
+//       128 x 64   4 x 2 warps of 32 x 32    159,744 / 82,944
+//       128 x 128  2 x 4 warps of 64 x 32    208,896 / 107,520
+//       128 x 256  2 x 8 warps of 64 x 32    bf16 only: 156,672
+//       256 x 128  4 x 4 warps of 64 x 32    bf16 only: 162,816
+//     128 x 256 and 256 x 128 are not instantiated for fp32 inputs: their
+//     3-stage rings (307,200 / 313,344 bytes) exceed the 232,448 bytes a
+//     block may have, and their 16 warps would have 128 registers a thread
+//     where the fp32 64 x 32 warp piece takes ~254.  64 x 128 has four
+//     warps of 64 x 32, not eight of 32 x 32: with eight, its fp32 kernel
+//     spills 20 bytes at 255 registers.  The model picks among these
+//     (kernels/matmul/ops.py: select_blocks).  Rows are padded (A by 16
+//     bytes, B by 32 bytes fp32 / 16 bytes bf16) so the fragment reads hit
+//     no bank twice.  Where a row of A or B is not a whole number of
+//     16-byte chunks (K or N not a multiple of 4 fp32 / 8 bf16, e.g.
+//     K = 257), the same kernel
 //     stages that operand with element loads; entries past an edge are
 //     written as zeros either way;
-//   * bf16 fits in 128 registers, so two 128 x 128 blocks (16 warps) share
-//     an SM; fp32, with its two accumulators, runs one;
+//   * bf16 fits in 128 registers, so two 128 x 128 blocks (16 warps), or
+//     one 16-warp block, share an SM; fp32, with its two accumulators, runs
+//     one block (two of 64 x 64);
 //   * blocks are ordered in groups of 8 row tiles so that the B slices a
 //     wave of blocks reads are shared in L2.
 //
@@ -74,12 +90,21 @@ constexpr int GROUP_M = 8;             // row tiles per L2 group
 template <typename T> struct Layout;
 template <> struct Layout<float> {     // 4 elements a 16-byte chunk
   static constexpr int CHUNK = 4, PAD_A = 4, PAD_B = 8;
-  static constexpr int MIN_BLOCKS = 1; // 2 accumulators of 64 floats a thread
 };
 template <> struct Layout<bf16> {      // 8 elements a 16-byte chunk
   static constexpr int CHUNK = 8, PAD_A = 8, PAD_B = 8;
-  static constexpr int MIN_BLOCKS = 2; // <= 128 registers: 16 warps an SM
 };
+
+// Blocks an SM the registers are budgeted for (__launch_bounds__): fp32,
+// with its two accumulators, up to 255 registers a thread; bf16 held to 128
+// registers a thread, so 16 warps share an SM (two 8-warp blocks, or one
+// 16-warp block).
+template <typename T, int THREADS>
+__host__ __device__ constexpr int min_blocks() {
+  return sizeof(T) == 4 || THREADS >= 512 ? 1 : 2;
+}
+
+constexpr int MAX_SMEM = 232448;       // dynamic shared memory a block may use
 
 template <int BM, int BN, typename T>
 constexpr int smem_bytes() {
@@ -223,7 +248,7 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int r0, int c0,
 template <int BM, int BN, int WARPS_M, int WARPS_N, typename TIn,
           typename TOut>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32,
-                                  Layout<TIn>::MIN_BLOCKS)
+                                  min_blocks<TIn, WARPS_M * WARPS_N * 32>())
 matmul_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
               TOut* __restrict__ c, int m, int n, int k, int vec_a,
               int vec_b) {
@@ -406,6 +431,7 @@ template <int BM, int BN, int WARPS_M, int WARPS_N, typename TIn,
 int launch(const void* a, const void* b, void* c, int m, int n, int k,
            cudaStream_t stream) {
   constexpr int smem = smem_bytes<BM, BN, TIn>();
+  static_assert(smem <= MAX_SMEM, "the tile's ring does not fit an SM");
   auto* kernel = matmul_kernel<BM, BN, WARPS_M, WARPS_N, TIn, TOut>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -423,16 +449,21 @@ int launch(const void* a, const void* b, void* c, int m, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// BM x BN output tile with WARPS_M x WARPS_N warps, for each dtype pair.
-template <int BM, int BN, int WARPS_M, int WARPS_N>
+// BM x BN output tile with WARPS_M x WARPS_N warps, for each dtype pair
+// (fp32 inputs only where F32).
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool F32 = true>
 int launch_types(const void* a, const void* b, void* c, int m, int n, int k,
                  int in_dtype, int out_dtype, cudaStream_t stream) {
-  if (in_dtype == 0 && out_dtype == 0)
-    return launch<BM, BN, WARPS_M, WARPS_N, float, float>(a, b, c, m, n, k,
-                                                          stream);
-  if (in_dtype == 0 && out_dtype == 1)
-    return launch<BM, BN, WARPS_M, WARPS_N, float, bf16>(a, b, c, m, n, k,
-                                                         stream);
+  if constexpr (F32) {
+    if (in_dtype == 0 && out_dtype == 0)
+      return launch<BM, BN, WARPS_M, WARPS_N, float, float>(a, b, c, m, n, k,
+                                                            stream);
+    if (in_dtype == 0 && out_dtype == 1)
+      return launch<BM, BN, WARPS_M, WARPS_N, float, bf16>(a, b, c, m, n, k,
+                                                           stream);
+  } else {
+    if (in_dtype == 0) return -1;      // not instantiated for fp32 inputs
+  }
   if (in_dtype == 1 && out_dtype == 0)
     return launch<BM, BN, WARPS_M, WARPS_N, bf16, float>(a, b, c, m, n, k,
                                                          stream);
@@ -445,18 +476,32 @@ int launch_types(const void* a, const void* b, void* c, int m, int n, int k,
 }  // namespace
 
 // Plain C entry point for ctypes.  dtypes: 0 = float32, 1 = bfloat16.
-// tile: 64 (64 x 64 output tile) or 128 (128 x 128).  Returns the launch's
-// cudaError_t, or a negative code for arguments it does not take.
+// (bm, bn): the output tile, one of the table in the header (128 x 256 and
+// 256 x 128 for bf16 inputs only).  Returns the launch's cudaError_t, -1 for
+// a tile that is not instantiated for the input type, -2 for an unknown
+// dtype, -3 for an empty or oversized product.
 extern "C" int matmul_fwd(const void* a, const void* b, void* c, int m, int n,
-                          int k, int in_dtype, int out_dtype, int tile,
+                          int k, int in_dtype, int out_dtype, int bm, int bn,
                           void* stream) {
   if (m < 1 || n < 1 || k < 1) return -3;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (tile == 64)
+  if (bm == 64 && bn == 64)
     return launch_types<64, 64, 2, 2>(a, b, c, m, n, k, in_dtype, out_dtype,
                                       st);
-  if (tile == 128)
+  if (bm == 64 && bn == 128)
+    return launch_types<64, 128, 1, 4>(a, b, c, m, n, k, in_dtype, out_dtype,
+                                       st);
+  if (bm == 128 && bn == 64)
+    return launch_types<128, 64, 4, 2>(a, b, c, m, n, k, in_dtype, out_dtype,
+                                       st);
+  if (bm == 128 && bn == 128)
     return launch_types<128, 128, 2, 4>(a, b, c, m, n, k, in_dtype,
                                         out_dtype, st);
+  if (bm == 128 && bn == 256)
+    return launch_types<128, 256, 2, 8, false>(a, b, c, m, n, k, in_dtype,
+                                               out_dtype, st);
+  if (bm == 256 && bn == 128)
+    return launch_types<256, 128, 4, 4, false>(a, b, c, m, n, k, in_dtype,
+                                               out_dtype, st);
   return -1;
 }

@@ -15,7 +15,7 @@ import torch
 from .. import _build
 from . import ref
 
-HEAD_DIMS = (64, 80, 128)          # head dims the kernel is instantiated for
+HEAD_DIMS = (64, 80, 128, 256)     # head dims the kernel is instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535               # heads and batch ride grid.y and grid.z
 

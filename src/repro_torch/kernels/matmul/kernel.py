@@ -18,28 +18,44 @@ from . import ref
 DEFAULT_BM = 256
 DEFAULT_BN = 256
 DEFAULT_BK = 512
-TILES = (64, 128)              # square output tiles the source instantiates
+BK = 64                        # K slice of every Hopper tile
+# The (bm, bn) output tiles the source instantiates, by input dtype: fp32
+# has no 128 x 256 or 256 x 128 (their rings exceed an SM's shared memory;
+# csrc/matmul.cu's header).
+TILES = {
+    torch.float32: ((64, 64), (64, 128), (128, 64), (128, 128)),
+    torch.bfloat16: ((64, 64), (64, 128), (128, 64), (128, 128),
+                     (128, 256), (256, 128)),
+}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 # Kernel launches; the wrapper adds one per launch and nowhere else.  A
 # caller resets it to 0 before the run it wants to count.
 launches = 0
 
 
-def hopper_tile(m: int, n: int, bm: int = DEFAULT_BM,
-                bn: int = DEFAULT_BN) -> int:
-    """The instantiated output tile that stands for the reference's
-    (bm, bn): both clamped to the product's (m, n) as the reference clamps
-    them, then the largest instantiated square tile that fits inside both
-    (128 x 128 when each is at least 128, else 64 x 64)."""
+def hopper_tile(m: int, n: int, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
+                dtype=torch.float32) -> tuple:
+    """The instantiated (bm, bn) output tile that the block shape (bm, bn)
+    launches for ``dtype`` inputs: the tile itself where it is
+    instantiated (``select_blocks`` returns such tiles); else, for the
+    reference's TPU block shapes, both clamped to the product's (m, n) as
+    the reference clamps them, then the largest instantiated square tile
+    that fits inside both (128 x 128 when each is at least 128, else
+    64 x 64)."""
     if bm < 1 or bn < 1:
         raise ValueError(f"block shape bm={bm}, bn={bn} must be positive")
+    tiles = TILES[dtype]
+    if (bm, bn) in tiles:
+        return bm, bn
     side = min(bm, m, bn, n)
-    fitting = [t for t in TILES if t <= side]
-    return max(fitting) if fitting else min(TILES)
+    squares = [t for t, u in tiles if t == u]
+    fitting = [t for t in squares if t <= side]
+    t = max(fitting) if fitting else min(squares)
+    return t, t
 
 
 def check_inputs(a, b, out_dtype) -> None:
@@ -83,10 +99,11 @@ def matmul_tiled(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
     """a: (M, K) @ b: (K, N) -> (M, N), fp32 accumulation, cast to
     ``out_dtype`` (default ``a.dtype``).
 
-    ``bm``/``bn`` are the reference's TPU block shapes; on the card they
-    choose one of the instantiated Hopper output tiles (``hopper_tile``).
-    ``bk`` is the TPU's VMEM depth along K and has no counterpart: both
-    Hopper tiles stream K through shared memory in 64-deep slices.  The
+    ``bm``/``bn`` choose one of the instantiated Hopper output tiles
+    (``hopper_tile``): an instantiated tile is launched as given, the
+    reference's TPU block shapes map to a square one.  ``bk`` is the TPU's
+    VMEM depth along K and has no counterpart: every Hopper tile streams K
+    through shared memory in 64-deep slices (``BK``).  The
     products run on the tensor cores: bf16 mma.sync for bf16 inputs,
     3xTF32 mma.sync (each element split into two TF32 parts, three
     products) for fp32.  Every tile gives the same bits: each output takes
@@ -103,12 +120,12 @@ def matmul_tiled(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
     check_inputs(a, b, out_dtype)
     m, k = a.shape
     n = b.shape[1]
-    tile = hopper_tile(m, n, bm, bn)
+    tile = hopper_tile(m, n, bm, bn, a.dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     with torch.cuda.device(a.device):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-            _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], tile,
+            _DTYPE_CODES[a.dtype], _DTYPE_CODES[out_dtype], *tile,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed (code {err}) for "

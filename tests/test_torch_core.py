@@ -33,7 +33,10 @@ ROUTES = sweep.ROUTES
 # Modules copied verbatim (only import lines may differ).
 COPIED = ("hardware", "hwlib", "workload", "cache", "roofline", "generic",
           "blackwell", "cdna3", "collectives", "tpu", "sweep", "parallel",
-          "predict", "validate", "calibrate")
+          "predict", "validate", "calibrate", "autotune", "segments",
+          "suites/__init__", "suites/b200_microbench",
+          "suites/mi300a_microbench", "suites/rodinia", "suites/spechpc",
+          "suites/ports")
 # The deliberate differences: (module, port text, reference text).
 CHANGED = {
     "predict": [
@@ -192,13 +195,33 @@ def test_fork_is_refused_once_torch_is_loaded():
 
 def test_port_core_passes_the_reference_linter():
     from repro.analysis import run_checks
+    from repro.analysis.rules.sweep_loop import ALLOWED_PATHS
     report = run_checks(root=str(ROOT),
                         paths=("src/repro_torch/core", "src/repro_torch/obs"),
                         rules=["SWEEP-LOOP", "FROZEN-MUT", "FORK-LOCK"])
-    errors = [f.render() for f in report.unsuppressed()]
+    # The rule allow-lists the reference's suite inventories by their path
+    # ("repro/core/suites/"); the port's copies of them, held to the same
+    # text, are allowed the same loops.
+    suites = [a.replace("repro/", "repro_torch/", 1) for a in ALLOWED_PATHS
+              if "/suites/" in a]
+    assert suites == ["repro_torch/core/suites/"]
+    errors = [f.render() for f in report.unsuppressed()
+              if not (f.rule == "SWEEP-LOOP"
+                      and any(a in f.path for a in suites))]
     assert not errors, errors
     # the port's files were scanned: the suite's characterization loops
     # carry their inline allows, and those matched
     allowed = [f for f in report.findings
                if f.suppressed and f.path.endswith("core/microbench.py")]
     assert len(allowed) == 2
+
+
+def test_every_reference_core_module_has_its_port():
+    """The port's core holds every module of the reference's but its
+    JAX-bound ``microbench`` (rewritten in torch) as a copy."""
+    ref = {str(p.relative_to(REF_CORE))[:-3]
+           for p in REF_CORE.rglob("*.py")} - {"__init__", "microbench"}
+    assert ref == set(COPIED)
+    from repro_torch import core
+    for name in ("autotune", "segments"):
+        assert name in core.__all__ and hasattr(core, name)

@@ -102,6 +102,44 @@ def test_single_rounding_variant_fits_the_kernel_source():
                                            "main path S=8192 w=4096"]
 
 
+def _kernel_variants():
+    spec = importlib.util.spec_from_file_location(
+        "kernel_variants", ROOT / "scripts" / "kernel_variants.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    return script
+
+
+@pytest.mark.parametrize("variant", ["kept", "unrolled", "keys32",
+                                     "keys32_unrolled"])
+def test_d256_variants_fit_the_kernel_source(variant):
+    """scripts/kernel_variants.py measures the D = 256 bf16 kernel against
+    copies with 32-key tiles and an unrolled copy loop; its edits must still
+    fit the kernel's source and change only what the variant names."""
+    script = _kernel_variants()
+    src = (ROOT / "src/repro_torch/csrc/flash_attention.cu").read_text()
+    got = script.variant_source(src, script.FLASH_EDITS[variant])
+    assert ("? 32 : 64;" in got) == variant.startswith("keys32")
+    assert ("#pragma unroll (D > 128 ? 1 : 8)" not in got) == \
+        variant.endswith("unrolled")
+    assert (got == src) == (variant == "kept")
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = """ptxas info    : Compiling entry function '_Z10attn_fwd_tcILi256EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z10attn_fwd_tcILi256EEvv
+    24 bytes stack frame, 40 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 24 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z10attn_fwd_tcILi80EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z10attn_fwd_tcILi80EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+    got = _kernel_variants().ptxas_usage(log, r"attn_fwd_tcILi256E")
+    assert got == {"_Z10attn_fwd_tcILi256EEvv": {
+        "registers": 255, "spill_stores": 40, "spill_loads": 44}}
+
+
 def test_strided_views_match_contiguous():
     """The model hands (B,S,H,D) -> (B,H,S,D) transposed views to the op."""
     rng = np.random.default_rng(4)
@@ -183,3 +221,34 @@ def test_library_path_is_keyed_by_source():
     assert path.name == "libflash_attention.so"
     assert path.parent.parent == _build.BUILD_ROOT
     assert path == _build.library_path("flash_attention")
+
+
+def _attention_reaches_the_kernel(cfg) -> bool:
+    """Whether some block of ``cfg`` runs ``attn_apply``'s self-attention,
+    the call that reaches the flash kernel with ``use_flash_kernel``
+    (``repro/models/attention.py:124``): the attention blocks, the
+    self-attention half of a cross-attention block, a MoE block without
+    MLA, the dense ``attn`` prefix (``repro/models/model.py:125``) and the
+    encoder."""
+    attn_blocks = {"attn", "local_attn", "cross_attn", "enc_attn"}
+    return cfg.n_heads > 0 and (
+        bool(attn_blocks & set(cfg.pattern))
+        or ("moe" in cfg.pattern and not cfg.use_mla)
+        or cfg.first_dense > 0 or cfg.enc_layers > 0)
+
+
+def test_every_full_width_head_dim_is_instantiated():
+    """Every full-width config whose attention reaches the kernel has a head
+    dim the kernel is instantiated for (recurrentgemma-9b's is 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ARCH_IDS
+    reached = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if _attention_reaches_the_kernel(cfg):
+            reached[arch] = cfg.head_dim
+    assert set(ARCH_IDS) - set(reached) == {"mamba2-1.3b"}
+    assert reached["recurrentgemma-9b"] == 256
+    assert reached["h2o-danube-1.8b"] == 80
+    missing = {a: d for a, d in reached.items() if d not in kernel.HEAD_DIMS}
+    assert not missing, missing

@@ -54,6 +54,9 @@ FLASH_TOL = [(torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
     (512, 80, 32, 8, True, 64),         # the window bites
     (256, 64, 8, 8, False, 0),          # non-causal, group 1
     (256, 128, 8, 2, True, 0),          # group 4
+    (1024, 256, 16, 1, True, 256),      # recurrentgemma-9b: D=256, MQA, window
+    (300, 256, 4, 2, True, 0),          # D=256, causal, a ragged last tile
+    (256, 256, 4, 4, False, 0),         # D=256, non-causal
 ])
 def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
                                       hkv, causal, window):
@@ -78,7 +81,9 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
     (1, 4096, 80, 32, 8, 4096, True),   # the main path's (B,S,H,D) views
     (2, 8, 64, 8, 2, 0, False),         # shorter than one key tile
     (2, 72, 128, 8, 2, 0, True),        # one tile and a ragged second
-], ids=["window1", "window16", "s4096_strided", "s8", "s72_strided"])
+    (1, 300, 256, 16, 1, 64, True),     # D=256: strided, ragged, windowed
+], ids=["window1", "window16", "s4096_strided", "s8", "s72_strided",
+        "d256_s300_strided"])
 def test_kernel_matches_plain_version_at_edges(cuda_device, dtype, tol, b, s,
                                                d, hq, hkv, window, strided):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -218,10 +223,10 @@ def test_matmul_kernel_matches_plain_version(cuda_device, dtype, m, n, k):
     a = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
     b = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
     mm_kernel.launches = 0
-    outs = [mm_kernel.matmul_tiled(a, b, bm=t, bn=t)
-            for t in mm_kernel.TILES]
+    tiles = mm_kernel.TILES[dtype]
+    outs = [mm_kernel.matmul_tiled(a, b, bm=bm, bn=bn) for bm, bn in tiles]
     torch.cuda.synchronize()
-    assert mm_kernel.launches == len(mm_kernel.TILES)
+    assert mm_kernel.launches == len(tiles) >= 4
     as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for out in outs[1:]:                    # the same bits from every tile
         assert torch.equal(out.view(as_int), outs[0].view(as_int))
@@ -229,6 +234,47 @@ def test_matmul_kernel_matches_plain_version(cuda_device, dtype, m, n, k):
     tol = KERNEL_TOL[dtype]
     torch.testing.assert_close(outs[0].float(), want.float(),
                                atol=tol * k ** 0.5, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_selected_blocks_launch_an_instantiated_tile(cuda_device, dtype):
+    """``select_blocks``' pick, passed to the op as the reference's callers
+    pass (bm, bn, bk), launches that tile, with the bits of every other."""
+    from repro_torch.core import hardware
+    from repro_torch.kernels.matmul import ops
+    m, n, k = 1000, 640, 520
+    precision = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+    (bm, bn, bk), costs = ops.select_blocks(m, n, k, precision=precision,
+                                            hw=hardware.get("h100"))
+    assert (bm, bn) in mm_kernel.TILES[dtype] and bk == mm_kernel.BK
+    assert mm_kernel.hopper_tile(m, n, bm, bn, dtype) == (bm, bn)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda_device).to(dtype)
+    mm_kernel.launches = 0
+    got = matmul(a, b, bm=bm, bn=bn, bk=bk)
+    other = mm_kernel.matmul_tiled(a, b)            # the default tile
+    torch.cuda.synchronize()
+    assert mm_kernel.launches == 2
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(as_int), other.view(as_int))
+    tol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(got.float(), mm_ref.matmul(a, b).float(),
+                               atol=tol * k ** 0.5, rtol=tol)
+
+
+def test_fp32_refuses_a_bf16_only_tile_on_card(cuda_device):
+    """128 x 256 is instantiated for bf16 inputs only: fp32 maps it to the
+    square tile; the C entry point refuses it outright (-1)."""
+    assert mm_kernel.hopper_tile(512, 512, 128, 256, torch.float32) == \
+        (128, 128)
+    a = torch.ones((64, 64), device=cuda_device)
+    out = torch.empty_like(a)
+    err = mm_kernel._entry()(a.data_ptr(), a.data_ptr(), out.data_ptr(), 64,
+                             64, 64, 0, 0, 128, 256,
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == -1
 
 
 def test_matmul_out_dtype_and_dispatch_on_card(cuda_device):

@@ -8,6 +8,10 @@ CUDA kernel itself is held against that plain version, and across its tiles
 bit for bit, by tests/test_torch_gpu.py (skipped without a card) and by
 chip_smoke.py.
 """
+import importlib.util
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -104,16 +108,27 @@ def test_ops_dispatch_is_the_reference(monkeypatch, m, n, k, kernel_called):
     _close(got, want, "float32", k)
 
 
-@pytest.mark.parametrize("m,n,bm,bn,tile", [
-    (4096, 4096, 256, 256, 128),    # the reference's defaults -> 128 x 128
-    (4096, 4096, 128, 128, 128),
-    (4096, 4096, 64, 64, 64),
-    (4096, 4096, 128, 64, 64),      # the tile fits inside both
-    (100, 4096, 256, 256, 64),      # clamped to m, as the reference clamps
-    (4096, 8, 256, 256, 64),        # narrower than every tile
+@pytest.mark.parametrize("m,n,bm,bn,dtype,tile", [
+    # the reference's defaults -> 128 x 128, for both input types
+    (4096, 4096, 256, 256, torch.float32, (128, 128)),
+    (4096, 4096, 256, 256, torch.bfloat16, (128, 128)),
+    (4096, 4096, 128, 128, torch.float32, (128, 128)),
+    (4096, 4096, 64, 64, torch.float32, (64, 64)),
+    # an instantiated tile is launched as given
+    (4096, 4096, 128, 64, torch.float32, (128, 64)),
+    (100, 4096, 64, 128, torch.float32, (64, 128)),
+    (4096, 4096, 128, 256, torch.bfloat16, (128, 256)),
+    (4096, 4096, 256, 128, torch.bfloat16, (256, 128)),
+    # bf16-only tiles are not instantiated for fp32: the square rule
+    (4096, 4096, 128, 256, torch.float32, (128, 128)),
+    (4096, 4096, 32, 512, torch.float32, (64, 64)),  # the tile fits in both
+    (100, 4096, 256, 256, torch.float32, (64, 64)),  # clamped to m, as the
+    #                                                  reference clamps
+    (4096, 8, 256, 256, torch.bfloat16, (64, 64)),   # narrower than any tile
 ])
-def test_hopper_tile_maps_the_reference_blocks(m, n, bm, bn, tile):
-    assert kernel.hopper_tile(m, n, bm, bn) == tile
+def test_hopper_tile_maps_the_reference_blocks(m, n, bm, bn, dtype, tile):
+    assert kernel.hopper_tile(m, n, bm, bn, dtype) == tile
+    assert tile in kernel.TILES[dtype]
 
 
 def _ok():
@@ -150,6 +165,25 @@ def test_bad_blocks_and_devices_raise():
         kernel.matmul_tiled(a.to("meta"), b.to("meta"))
 
 
+@pytest.mark.parametrize("variant", ["kept", "warps_2x4", "stage_unroll4",
+                                     "kstep_unroll4"])
+def test_tile_variants_fit_the_kernel_source(variant):
+    """scripts/kernel_variants.py measures the matmul against copies with
+    another 64x128 warp layout or less unrolled loops; its edits must still
+    fit the kernel's source, and the kept one is the source itself."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    src = (_build.CSRC / "matmul.cu").read_text()
+    got = script.variant_source(src, script.MATMUL_EDITS[variant])
+    assert (got == src) == (variant == "kept")
+    assert ("launch_types<64, 128, 2, 4>" in got) == (variant == "warps_2x4")
+    assert got.count("#pragma unroll 4\n") == src.count(
+        "#pragma unroll 4\n") + (variant.endswith("unroll4"))
+
+
 def test_cpu_never_counts_a_launch():
     kernel.launches = 0
     a, b = _inputs(5, 64, 64, 64)
@@ -164,5 +198,11 @@ def test_kernel_source_is_found_and_hashed():
     src = (_build.CSRC / "matmul.cu").read_text()
     assert 'extern "C" int matmul_fwd' in src
     assert "src/repro/kernels/matmul/kernel.py" in src
-    for tile in kernel.TILES:
-        assert f"launch_types<{tile}, {tile}," in src
+    for bm, bn in set(kernel.TILES[torch.float32]) | set(
+            kernel.TILES[torch.bfloat16]):
+        assert f"launch_types<{bm}, {bn}," in src
+        assert f"bm == {bm} && bn == {bn}" in src
+    # the bf16-only tiles are instantiated without fp32 inputs
+    for bm, bn in set(kernel.TILES[torch.bfloat16]) - set(
+            kernel.TILES[torch.float32]):
+        assert re.search(rf"launch_types<{bm}, {bn}, \d+, \d+, false>", src)

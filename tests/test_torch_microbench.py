@@ -91,6 +91,42 @@ def test_card_set_is_above_the_l2():
     assert (card.rmsnorm_rows, card.rmsnorm_d) == (65536, 2560)
 
 
+def test_card_vector_chain_is_flop_bound():
+    """The card's vector-FLOP chain does at least 4x the H100's ridge
+    (67e12 FLOP/s fp32 over 3.35e12 B/s) in flops per byte moved (one fp32
+    read and one write an element); the quick set keeps the reference's 4
+    FMAs (``repro/core/microbench.py:134``)."""
+    def flops_per_byte(sz):
+        return microbench.vector_chain_flops(sz.calib_vector_n,
+                                             sz.calib_vector_fmas) / (
+            8.0 * sz.calib_vector_n)
+    assert microbench.QUICK.calib_vector_fmas == 4
+    assert flops_per_byte(microbench.QUICK) == 1.0
+    assert flops_per_byte(microbench.CARD) >= 4 * 67e12 / 3.35e12
+
+
+@pytest.mark.parametrize("fmas", [4, 8, 512])
+def test_vector_flop_count_follows_the_chain_length(monkeypatch, fmas):
+    """The rate is 2 flops an FMA, ``fmas`` FMAs on each of n elements, over
+    the measured time; the chain computes those FMAs (timing stubbed, the
+    chain run eagerly)."""
+    n = 1 << 10
+    ran = []
+
+    def timed(fn, dev, *, repeats, warmups):
+        ran.append(fn())
+        return 0.5
+    monkeypatch.setattr(microbench, "compiled", lambda fn: fn)
+    monkeypatch.setattr(microbench, "_timed", timed)
+    rate = microbench.measure_vector_flops(n, fmas=fmas, device="cpu")
+    assert rate == 2.0 * fmas * n / 0.5
+    want = np.ones(n, np.float32)
+    for _ in range(fmas):
+        want = want * np.float32(1.0001) + np.float32(0.5)
+    np.testing.assert_allclose(ran[0].numpy(), want, rtol=1e-6)
+    assert microbench.measure_vector_flops(n, device="cpu") == 8.0 * n / 0.5
+
+
 def test_transpose_writes_a_contiguous_transpose(cases):
     calls = {w.name: call for w, call in cases}
     m = microbench.QUICK.transpose_n
