@@ -22,8 +22,10 @@ non-zero and prints no result):
                line naming the kernel's design (DESIGN).
                flash_attention: fp32 at 5e-5 (the reference's kernel
                tolerance, tests/test_kernels.py:22), bf16 at atol 1e-3 +
-               rtol 1e-2; head dims 64/80/128/256, and recurrentgemma-9b's
-               shape (D=256, MQA, window 2048) timed in both dtypes.
+               rtol 1e-2; head dims 16/64/80/128/256, recurrentgemma-9b's
+               shape (D=256, MQA, window 2048), its smoke config's (D=16)
+               and a head dim the wrapper pads (d=40 runs at 64), each
+               timed in both dtypes.
                ssd (fp32 only, as the model sends it): 1e-4 against the
                plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
@@ -58,6 +60,19 @@ non-zero and prints no result):
                time, the model's pick, the measured best, the regret and
                the rank correlation; every tile checked against the plain
                version and bit for bit; matmul launches counted.
+   predict_serve - the paper's serving surface on the card's numbers: a
+               server subprocess of the port (``serve.subproc``, HTTP and
+               the binary transport, a two-worker pool) is given the
+               loop's measured parameters (read back equal) and measured
+               suite (its class calibration equal to the in-process fit),
+               and answers which matmul tile to run at each tiles shape
+               (equal to ``select_blocks``' pick and cost bit for bit on
+               both transports); each served pick is launched through the
+               kernel (6 matmul launches), held to the plain version and to
+               the tiles phase's bits.  The server's processes hold none of
+               the card's device files open (no CUDA context).  Host-clock
+               latencies (argmin over each transport, a 102,400-row
+               lattice with the pool's start) are printed, not gated.
 4. prefill   - each model's main path: ``make_prefill`` at full width and
                depth (random weights from a seed) for one request of 8192
                tokens, with every kernel's launch count read around it;
@@ -340,6 +355,14 @@ MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
 # that model yet; its shape is checked and timed in fp32 and bf16.
 D256 = ("recurrentgemma-9b S=8192 w=2048 D=256", 1, 16, 1, PREFILL_LEN, 256,
         True, 2048, True)
+# The smallest instantiation: recurrentgemma-9b's smoke config (4 q heads, 1
+# kv head, head dim 16, window 8; configs/recurrentgemma_9b.py), at the same
+# prompt length.  And a head dim with no instantiation of its own: the
+# wrapper zero-pads 40 to 64 and launches the D=64 kernel once.
+D16 = ("recurrentgemma-9b smoke S=8192 w=8 D=16", 1, 4, 1, PREFILL_LEN, 16,
+       True, 8, True)
+D40 = ("padded d=40 S=8192 w=1024", 1, 8, 2, PREFILL_LEN, 40, True, 1024,
+       True)
 
 
 def sdpa_ms(q, k, v, *, sm_scale, window, reps) -> float:
@@ -432,12 +455,15 @@ def flash_attention_checks() -> dict:
     main = timed_case(MAIN, torch.bfloat16, gen)
     checks.append({k: main[k] for k in ("case", "dtype", "max_abs_err",
                                         "tol")})
-    d256 = {"shape": case_shape(D256)}
-    for dtype in (torch.float32, torch.bfloat16):
-        case = timed_case(D256, dtype, gen)
-        d256[case["dtype"]] = {k: case[k] for k in (
-            "max_abs_err", "tol", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")}
+    extra_shapes = {}
+    for key, spec in (("d256", D256), ("d16", D16), ("d40", D40)):
+        extra_shapes[key] = {"shape": case_shape(spec)}
+        for dtype in (torch.float32, torch.bfloat16):
+            case = timed_case(spec, dtype, gen)
+            extra_shapes[key][case["dtype"]] = {k: case[k] for k in (
+                "max_abs_err", "tol", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by")}
+    extra_shapes["d40"]["runs_at_head_dim"] = fa_kernel.padded_head_dim(40)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:100",
@@ -447,7 +473,8 @@ def flash_attention_checks() -> dict:
             "library_ms": main["library_ms"],
             "design": DESIGN["flash_attention"][torch.bfloat16],
             "shape": {**case_shape(MAIN), "dtype": "bfloat16"},
-            "d256": d256, "checks": checks}
+            "head_dims": list(fa_kernel.HEAD_DIMS), **extra_shapes,
+            "checks": checks}
 
 
 def ssd_work(b, s, h, p, n, chunk):
@@ -867,7 +894,8 @@ def loop(entries: dict):
     """The paper's loop at the card's sizes, through the entry point a user
     calls, after ``CALIBRATIONS - 1`` calibrations alone.  Records the
     matmul and rmsnorm launch counts of this run in their entries; returns
-    the measured parameters the ladder used."""
+    the measured parameters the ladder used and the measured suite it
+    validated."""
     sz = microbench.CARD
     runs = 1 + sz.warmups + sz.repeats      # a first call, then the timed
     want = {"flash_attention": 0, "ssd": 0,
@@ -937,7 +965,7 @@ def loop(entries: dict):
     phase("loop", launches=launches, seconds=f"{secs:.1f}",
           derived=repr(lad.derived()))
     torch.cuda.empty_cache()
-    return hw
+    return hw, lad.suite
 
 
 # ------------------------------------------------------ phase: tile selection
@@ -980,20 +1008,22 @@ def rank_correlation(xs, ys) -> float:
     return cov / var ** 0.5 if var > 0 else float("nan")
 
 
-def tile_selection(measured_hw, entries: dict) -> None:
+def tile_selection(measured_hw, entries: dict) -> dict:
     """For each shape, the model's price of every instantiated tile
     (``select_blocks``: fp32 on the measured parameters, bf16 on the
     datasheet file, which ``calibrate_device`` does not measure) beside the
     tile's time (CUDA events, mean of ``TILE_REPS`` after a warm-up); every
     tile checked against the plain version and bit for bit against the
     others.  Regret: the measured time of the model's pick over the best
-    measured time, minus 1.  Nothing is gated on it."""
+    measured time, minus 1.  Nothing is gated on it.  Returns each shape's
+    inputs and output (every tile's bits), keyed by (shape, dtype), for
+    the served picks to be held to."""
     gen = generator(SEED + 5, "cuda")
     sheet = hardware.get("h100")
     want = sum(len(mm_kernel.TILES[dtype]) * (1 + TILE_WARMUP + TILE_REPS)
                for _, dtype in TILE_SHAPES)
     reset_launches()
-    summary = []
+    summary, runs = [], {}
     for (m, n, k), dtype in TILE_SHAPES:
         precision = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
         hw = measured_hw if dtype == torch.float32 else sheet
@@ -1005,7 +1035,7 @@ def tile_selection(measured_hw, entries: dict) -> None:
         out, plain = same_bits_from_every_tile(what, a, b)
         tol = MM_RMS_TOL[dtype]
         err = check_close(what, out, plain, atol=tol * k ** 0.5, rtol=tol)
-        del out, plain
+        runs[((m, n, k), dtype)] = (a, b, out, plain)
         blocks = list(costs)
         ms = [cuda_ms(lambda bm=bm, bn=bn: mm_kernel.matmul_tiled(
                   a, b, bm=bm, bn=bn), reps=TILE_REPS, warmup=TILE_WARMUP)
@@ -1028,14 +1058,255 @@ def tile_selection(measured_hw, entries: dict) -> None:
                         "measured_ms": dict(zip([f"{c[0]}x{c[1]}"
                                                  for c in blocks], ms)),
                         "measured_best": list(best[:2])})
-        del a, b
-        torch.cuda.empty_cache()
+        del a, b, out, plain
     launches = read_launches()
     check_launches("tile selection", launches,
                    {"flash_attention": 0, "ssd": 0, "matmul": want,
                     "rmsnorm": 0})
     phase("tiles", launches=launches)
     entries["matmul"]["tile_selection"] = summary
+    return runs
+
+
+# ------------------------------------------------ phase: the prediction server
+
+# Every client call of the phase has this deadline: a wedged server fails
+# the run instead of hanging it.
+SERVE_DEADLINE_S = 120.0
+SERVE_SMALL_REQUESTS = 200      # argmin requests timed over each transport
+# ~100k rows: a (flops, bytes) grid over a bf16 GEMM, priced by the server
+# as a streamed lattice plan.
+SERVE_GRID = 320
+
+
+def compute_app_pids() -> set:
+    """Processes holding a CUDA context on the card, as nvidia-smi lists
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return {int(w) for w in out.split() if w.isdigit()}
+
+
+def session_pids(sid: int) -> list:
+    """Every live process of session ``sid``: the server and the workers
+    its pool starts (the server is the leader of its own session)."""
+    pids = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+        except OSError:
+            continue
+        # fields after the parenthesised command: state ppid pgrp session
+        if int(stat.rsplit(")", 1)[1].split()[3]) == sid:
+            pids.append(int(d.name))
+    return sorted(pids)
+
+
+def nvidia_fds(pid: int) -> int:
+    """How many of the process's open files are the card's device files
+    (/dev/nvidia*).  A process with a CUDA context holds them open; one
+    that has only imported torch (which maps the driver library) holds
+    none."""
+    n = 0
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            n += os.readlink(fd).startswith("/dev/nvidia")
+        except OSError:
+            continue
+    return n
+
+
+def maps_libcuda(pid: int):
+    """Whether the process has the CUDA driver library mapped (None when
+    its maps cannot be read)."""
+    try:
+        return "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return None
+
+
+def quantile_ms(secs: list, q: float) -> float:
+    xs = sorted(secs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+
+def predict_serve(measured_hw, suite, tile_runs: dict, entries: dict) -> None:
+    """The paper's serving surface on the card's own numbers: a server
+    subprocess of the port is given the measured parameters and the
+    measured suite, fits the class calibration, and answers which matmul
+    tile to run at each of the tiles phase's shapes over HTTP and the
+    binary transport; each served pick is launched through the
+    hand-written kernel.  The server prices with numpy and must hold no
+    CUDA context.  Host-clock latencies are printed, not gated."""
+    import numpy as np
+    from repro_torch.core import calibrate, sweep
+    from repro_torch.core.workload import (LatticeSpec, TileConfig,
+                                           WorkloadTable, gemm_workload)
+    from repro_torch.serve import subproc
+    from repro_torch.serve.client import PredictionClient
+
+    dl = {"deadline_s": SERVE_DEADLINE_S}
+    sheet = hardware.get("h100")
+    t_phase = time.perf_counter()
+    reset_launches()
+    t0 = time.perf_counter()
+    proc, host, port, bport = subproc.start_server_subprocess(
+        ["--jobs", "2"], binary=True)
+    start_s = time.perf_counter() - t0
+    clients = []
+    try:
+        http = PredictionClient(host, port, transport="http")
+        binary = PredictionClient(host, port, transport="binary",
+                                  binary_port=bport)
+        clients = [http, binary]
+        health = http.health(**dl)
+        phase("predict_serve", server_pid=proc.pid, http=f"{host}:{port}",
+              binary=f"{host}:{bport}", start_to_banner_s=f"{start_s:.3f}",
+              jobs=2, status=health["status"])
+
+        # 1. the measured parameters, registered and read back
+        http.hardware_register(measured_hw, overwrite=True, **dl)
+        back = http.hardware_get(measured_hw.name, **dl)
+        if back.params != measured_hw:
+            raise AssertionError(f"{measured_hw.name} read back from the "
+                                 f"server differs from what was registered")
+        phase("predict_serve", registered=measured_hw.name,
+              read_back_equal=True)
+
+        # 2. the class calibration, fitted on the server and in process
+        cal, report = http.calibrate(suite, measured_hw.name, mode="class",
+                                     seed=0, register_as="h100-card", **dl)
+        engine = sweep.SweepEngine()
+        local_cal, local_report = calibrate.fit_with_holdout(
+            suite.workloads, suite.measured_s,
+            lambda w: engine.predict(w, measured_hw), mode="class", seed=0)
+        if cal.to_dict() != local_cal.to_dict() or report != local_report:
+            raise AssertionError(
+                f"served calibration {cal.to_dict()} {report} differs from "
+                f"the in-process fit {local_cal.to_dict()} {local_report}")
+        phase("predict_serve", calibration="class", cases=len(suite),
+              multipliers=cal.to_dict().get("per_class"),
+              holdout_mae=f"{report['holdout_mae']:.3f}",
+              equal_to_in_process=True)
+
+        # 3. the served tile at each shape, launched through the kernel
+        picks = []
+        for (m, n, k), dtype in TILE_SHAPES:
+            precision = {torch.float32: "fp32",
+                         torch.bfloat16: "bf16"}[dtype]
+            hw = measured_hw if dtype == torch.float32 else sheet
+            blocks = mm_ops.kernel_blocks(precision)
+            table = WorkloadTable.tile_lattice(
+                gemm_workload(f"matmul_{m}x{n}x{k}", m, n, k,
+                              precision=precision),
+                [TileConfig(*blk) for blk in blocks])
+            pick, costs = mm_ops.select_blocks(m, n, k, precision=precision,
+                                               hw=hw)
+            for client in clients:
+                win = client.argmin(table, hw.name, **dl)
+                if blocks[win.index] != pick or win.total != costs[pick]:
+                    raise AssertionError(
+                        f"served argmin at {(m, n, k)} {precision} over "
+                        f"{client.transport}: {blocks[win.index]} "
+                        f"{win.total!r}, select_blocks: {pick} "
+                        f"{costs[pick]!r}")
+            a, b, tiles_out, plain = tile_runs[((m, n, k), dtype)]
+            got = mm_kernel.matmul_tiled(a, b, bm=pick[0], bn=pick[1])
+            torch.cuda.synchronize()
+            tol = MM_RMS_TOL[dtype]
+            what = f"served pick {(m, n, k)} {precision}"
+            err = check_close(what, got, plain, atol=tol * k ** 0.5,
+                              rtol=tol)
+            if not torch.equal(bits(got), bits(tiles_out)):
+                raise AssertionError(f"{what}: bits differ from the tiles "
+                                     f"phase's output")
+            del got
+            phase("predict_serve", shape=[m, n, k], dtype=precision,
+                  params=hw.name, served=f"{pick[0]}x{pick[1]}x{pick[2]}",
+                  transports="http+binary", equal_to_select_blocks=True,
+                  max_abs_err=f"{err:.3e}", same_bits_as_tiles=True)
+            picks.append({"shape": [m, n, k], "dtype": precision,
+                          "params": hw.name, "tile": list(pick[:2]),
+                          "max_abs_err": err, "same_bits_as_tiles": True})
+
+        # 4. host-clock latencies (not gated)
+        small = WorkloadTable.concat([
+            WorkloadTable.tile_lattice(
+                gemm_workload(f"matmul_{m}x{n}x{k}", m, n, k,
+                              precision=precision),
+                [TileConfig(*blk) for blk in mm_ops.kernel_blocks(precision)])
+            for (m, n, k), precision in (((4096, 4096, 4096), "fp32"),
+                                         ((8192, 8192, 8192), "bf16"))])
+        for client in clients:
+            secs = []
+            for _ in range(SERVE_SMALL_REQUESTS):
+                c0 = time.perf_counter()
+                client.argmin(small, "h100", **dl)
+                secs.append(time.perf_counter() - c0)
+            phase("predict_serve", latency="argmin", rows=len(small),
+                  transport=client.transport, requests=len(secs),
+                  median_ms=f"{quantile_ms(secs, 0.5):.4f}",
+                  p99_ms=f"{quantile_ms(secs, 0.99):.4f}")
+        # The server streams a lattice plan through its worker pool (two
+        # forkserver workers, started at the first such request); each run
+        # prices another grid, so no cache answers it.
+        for run in range(3):
+            grid = np.geomspace(1e6, 1e14, SERVE_GRID) * (1.0 + run / 8)
+            spec = LatticeSpec.cartesian(
+                gemm_workload("lattice", 8192, 8192, 8192, precision="bf16"),
+                flops=grid, bytes=grid)
+            want = sweep.predict_table(spec.materialize(), sheet).totals
+            label = "first (pool start)" if run == 0 else f"run {run + 1}"
+            c0 = time.perf_counter()
+            totals = http.predict_totals(spec, "h100", jobs=2, **dl)
+            secs = time.perf_counter() - c0
+            if not np.array_equal(totals, want):
+                raise AssertionError(f"served totals of the {len(spec)}-row "
+                                     f"lattice ({label}) differ from the "
+                                     f"in-process sweep")
+            phase("predict_serve", latency="predict_totals", rows=len(spec),
+                  run=repr(label), ms=f"{secs * 1e3:.3f}",
+                  equal_to_in_process=True)
+
+        # 5. the server, and the pool it started, hold no CUDA context.
+        # nvidia-smi may list the card's processes by pids of another pid
+        # namespace (in a container it can list only pid 1 while this
+        # process holds a context), so the device files each process holds
+        # open are the witness that decides; this process, which holds a
+        # context, shows that the witness sees one.
+        pids = session_pids(proc.pid)
+        apps = compute_app_pids()
+        fds = {p: nvidia_fds(p) for p in pids}
+        own_fds = nvidia_fds(os.getpid())
+        phase("predict_serve", server_session_pids=pids,
+              nvidia_smi_compute_pids=sorted(apps),
+              this_process_listed=os.getpid() in apps,
+              device_files_open=fds, this_process_device_files=own_fds,
+              libcuda_mapped={p: maps_libcuda(p) for p in pids})
+        if proc.pid not in pids or [p for p in pids if p in apps]:
+            raise AssertionError(f"server processes {pids} listed among "
+                                 f"nvidia-smi's compute apps {apps}")
+        if own_fds == 0:
+            raise AssertionError("this process holds a CUDA context, yet no "
+                                 "/dev/nvidia* file is open in it: the "
+                                 "witness cannot see a context")
+        if any(fds.values()):
+            raise AssertionError(f"server processes hold the card's device "
+                                 f"files open (a CUDA context): {fds}")
+    finally:
+        for client in clients:
+            client.close()
+        subproc.stop_server_subprocess(proc)
+    launches = read_launches()
+    check_launches("the served picks", launches,
+                   {"flash_attention": 0, "ssd": 0,
+                    "matmul": len(TILE_SHAPES), "rmsnorm": 0})
+    phase("predict_serve", launches=launches,
+          seconds=f"{time.perf_counter() - t_phase:.1f}")
+    entries["matmul"]["served_picks"] = picks
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1178,8 +1449,11 @@ def main() -> int:
     entries = {"flash_attention": flash_attention_checks(),
                "ssd": ssd_checks(), "matmul": matmul_checks(),
                "rmsnorm": rmsnorm_checks()}
-    measured_hw = loop(entries)
-    tile_selection(measured_hw, entries)
+    measured_hw, suite = loop(entries)
+    tile_runs = tile_selection(measured_hw, entries)
+    predict_serve(measured_hw, suite, tile_runs, entries)
+    del tile_runs
+    torch.cuda.empty_cache()
     for arch in (DANUBE, MAMBA2):
         prefill_requests(arch, entries)
         generation_request(arch)

@@ -66,6 +66,13 @@
 // tiles stay within 48 KB of static shared memory) in shared memory, the
 // partial dot products meeting through warp shuffles.
 //
+// Head dims: 16 (the smoke configs of recurrentgemma-9b, qwen3-moe and
+// deepseek-v3), 64, 80, 128 and 256.  At D = 16 the bf16 kernel is the same
+// design with one k-step of Q K^T and two 8-wide column tiles of O (48-byte
+// padded rows, 18 KB of shared memory); the fp32 kernel gives a row two
+// threads of 8 dims each.  The wrapper zero-pads any other head dim up to
+// 256 to the next of these.
+//
 // Left for later: wgmma fed by TMA (the only way to the full bf16 rate),
 // and packing a GQA group's q heads into one block so each K/V tile is
 // loaded once for all of them.
@@ -607,6 +614,9 @@ extern "C" int flash_attention_fwd(
   const int group = heads_q / heads_kv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16:
+      return launch<16>(dtype, q, k, v, o, batch, heads_q, group, seq_len, qs,
+                        ks, vs, sm_scale, causal, window, st);
     case 64:
       return launch<64>(dtype, q, k, v, o, batch, heads_q, group, seq_len, qs,
                         ks, vs, sm_scale, causal, window, st);

@@ -15,7 +15,7 @@ import torch
 from .. import _build
 from . import ref
 
-HEAD_DIMS = (64, 80, 128, 256)     # head dims the kernel is instantiated for
+HEAD_DIMS = (16, 64, 80, 128, 256)  # head dims the kernel is instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535               # heads and batch ride grid.y and grid.z
 
@@ -59,6 +59,26 @@ def check_inputs(q, k, v) -> None:
         raise ValueError(f"batch {b} or heads {hq} above {_MAX_GRID_YZ}")
 
 
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a head dim ``d`` runs at: ``d`` itself, or
+    the next one up.  Raises above 256, which the reference's kernel cannot
+    tile either."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"head dim {d} has no kernel instantiation; the kernel "
+                     f"takes head dims up to {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(q, k, v):
+    """q, k and v zero-padded along the head dim to ``padded_head_dim``
+    (returned as they are when it is instantiated)."""
+    pad = padded_head_dim(q.shape[-1]) - q.shape[-1]
+    if pad == 0:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+
+
 def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = _ARGTYPES
@@ -74,7 +94,14 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
 
     On the card, bf16 inputs run on the tensor cores (mma.sync, scores and
     softmax in fp32, P split into bf16 p_hi + p_lo for the product with V);
-    fp32 inputs run in fp32 on the CUDA cores."""
+    fp32 inputs run in fp32 on the CUDA cores.
+
+    A head dim ``d <= 256`` that is not in ``HEAD_DIMS`` (40, 96, ...) is
+    zero-padded to the next instantiated one (``pad_head_dim``): zero
+    columns add nothing to Q·Kᵀ, ``sm_scale`` is passed as given, and the
+    output's zero columns are sliced off.  Still one kernel launch; the pad
+    costs a padded copy of q, k and v and of the output, and the kernel
+    does the work of the padded width (d = 40 runs at 64: 1.6x)."""
     global launches
     if q.device.type == "cpu":
         return ref.attention(q, k, v, sm_scale=sm_scale, causal=causal,
@@ -82,6 +109,8 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
+    d_in = q.shape[-1]
+    q, k, v = pad_head_dim(q, k, v)
     check_inputs(q, k, v)
     b, hq, s, d = q.shape
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
@@ -96,4 +125,4 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(code {err}) for q {tuple(q.shape)} {q.dtype}")
     launches += 1
-    return out
+    return out if d == d_in else out[..., :d_in].contiguous()

@@ -216,6 +216,74 @@ def test_port_core_passes_the_reference_linter():
     assert len(allowed) == 2
 
 
+# The rules that name the reference's files by path, mapped to the port's
+# copies of those files (held to the reference's text by
+# tests/test_torch_predict_serve.py): the event loop LOOP-BLOCK guards, the
+# metrics module METRIC-NAME exempts, the codec and framing WIRE-DRIFT reads.
+def _map_rules_to_the_port(monkeypatch):
+    from repro.analysis.rules import loop_block, metric_name, wire_drift
+    entry = loop_block.EVENT_LOOP_FILES["repro/serve/binserver.py"]
+    monkeypatch.setattr(loop_block, "EVENT_LOOP_FILES",
+                        {"repro_torch/serve/binserver.py": entry})
+    assert metric_name.EXEMPT_PATHS == ("repro/obs/metrics.py",)
+    monkeypatch.setattr(metric_name, "EXEMPT_PATHS",
+                        ("repro_torch/obs/metrics.py",))
+    monkeypatch.setattr(wire_drift, "CODEC_REL",
+                        "src/repro_torch/serve/codec.py")
+    monkeypatch.setattr(wire_drift, "FRAMING_REL",
+                        "src/repro_torch/serve/framing.py")
+
+
+def test_port_serve_stack_passes_all_six_rules(monkeypatch):
+    """The whole reference linter over the port's serve stack and the core
+    and obs it registers metrics in (METRIC-NAME reconciles the families
+    registered there with tests/test_obs.py's contract list)."""
+    from repro.analysis import run_checks
+    from repro.analysis.core import RULES
+    from repro.analysis.rules.sweep_loop import ALLOWED_PATHS
+    _map_rules_to_the_port(monkeypatch)
+    assert len(RULES) == 6
+    report = run_checks(root=str(ROOT),
+                        paths=("src/repro_torch/serve", "src/repro_torch/obs",
+                               "src/repro_torch/core"))
+    suites = [a.replace("repro/", "repro_torch/", 1) for a in ALLOWED_PATHS
+              if "/suites/" in a]
+    errors = [f.render() for f in report.unsuppressed()
+              if not (f.rule == "SWEEP-LOOP"
+                      and any(a in f.path for a in suites))]
+    assert not errors, errors
+
+
+def test_port_wire_schema_is_the_committed_lock(monkeypatch):
+    """WIRE-DRIFT's own extractor, pointed at the port's codec and framing,
+    reads the schema of the reference's committed lock."""
+    import json
+    from repro.analysis.core import Project
+    from repro.analysis.rules import wire_drift
+    _map_rules_to_the_port(monkeypatch)
+    schema, where = wire_drift.extract_schema(Project(str(ROOT), []))
+    lock = json.loads((ROOT / wire_drift.LOCK_REL).read_text())
+    assert schema == lock
+    assert where["codec.wire_version"][0] == "src/repro_torch/serve/codec.py"
+
+
+def test_loop_block_mapping_reaches_the_port_event_loop(monkeypatch,
+                                                        tmp_path):
+    """The mapped LOOP-BLOCK scans the port's binserver: a copy with a
+    sleep on the event loop is flagged."""
+    from repro.analysis import run_checks
+    _map_rules_to_the_port(monkeypatch)
+    src = (ROOT / "src/repro_torch/serve/binserver.py").read_text()
+    marker = "    def _loop(self) -> None:\n"
+    assert src.count(marker) == 1
+    bad = tmp_path / "src/repro_torch/serve/binserver.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text(src.replace(marker, marker + "        time.sleep(0)\n"))
+    report = run_checks(root=str(tmp_path), paths=("src/repro_torch/serve",),
+                        rules=["LOOP-BLOCK"])
+    assert [f.rule for f in report.unsuppressed()] == ["LOOP-BLOCK"]
+
+
 def test_every_reference_core_module_has_its_port():
     """The port's core holds every module of the reference's but its
     JAX-bound ``microbench`` (rewritten in torch) as a copy."""

@@ -238,17 +238,51 @@ def _attention_reaches_the_kernel(cfg) -> bool:
 
 
 def test_every_full_width_head_dim_is_instantiated():
-    """Every full-width config whose attention reaches the kernel has a head
-    dim the kernel is instantiated for (recurrentgemma-9b's is 256)."""
+    """Every config, full width and smoke, whose attention reaches the
+    kernel has a head dim the kernel is instantiated for (recurrentgemma-9b's
+    is 256; the smoke configs of recurrentgemma-9b, qwen3-moe and
+    deepseek-v3 have 16)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import ARCH_IDS
-    reached = {}
-    for arch in ARCH_IDS:
-        cfg = get_config(arch)
-        if _attention_reaches_the_kernel(cfg):
-            reached[arch] = cfg.head_dim
-    assert set(ARCH_IDS) - set(reached) == {"mamba2-1.3b"}
-    assert reached["recurrentgemma-9b"] == 256
-    assert reached["h2o-danube-1.8b"] == 80
-    missing = {a: d for a, d in reached.items() if d not in kernel.HEAD_DIMS}
-    assert not missing, missing
+    for smoke in (False, True):
+        reached = {}
+        for arch in ARCH_IDS:
+            cfg = get_config(arch, smoke=smoke)
+            if _attention_reaches_the_kernel(cfg):
+                reached[arch] = cfg.head_dim
+        assert set(ARCH_IDS) - set(reached) == {"mamba2-1.3b"}
+        assert reached["h2o-danube-1.8b"] == 80
+        assert reached["recurrentgemma-9b"] == (16 if smoke else 256)
+        missing = {a: d for a, d in reached.items()
+                   if d not in kernel.HEAD_DIMS}
+        assert not missing, (smoke, missing)
+
+
+@pytest.mark.parametrize("d,padded", [(1, 16), (16, 16), (17, 64), (40, 64),
+                                      (80, 80), (96, 128), (200, 256),
+                                      (256, 256)])
+def test_head_dims_up_to_256_run_at_an_instantiation(d, padded):
+    assert kernel.padded_head_dim(d) == padded
+    assert padded in kernel.HEAD_DIMS
+
+
+def test_head_dims_above_256_raise():
+    with pytest.raises(ValueError, match="head dim 288"):
+        kernel.padded_head_dim(288)
+
+
+@pytest.mark.parametrize("d", [16, 40], ids=["d16", "d40"])
+def test_padded_path_matches_pallas_kernel_interpret(d):
+    """What the wrapper hands the card at head dim d (q, k, v zero-padded to
+    the instantiation, sm_scale of d, the output sliced back), computed by
+    the plain version, against the reference's kernel at d itself."""
+    q, k, v = _inputs(5, 1, 4, 2, 128, d)
+    want = jax_kernel.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          sm_scale=d ** -0.5, causal=True, window=16,
+                          block_q=64, block_kv=64, interpret=True)
+    padded = kernel.pad_head_dim(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert padded[0].shape[-1] == kernel.padded_head_dim(d)
+    got = ref.attention(*padded, sm_scale=d ** -0.5, causal=True,
+                        window=16)[..., :d]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)

@@ -120,9 +120,40 @@ def test_kernel_takes_views_without_16_byte_rows(cuda_device, dtype, tol):
 
 
 def test_unsupported_head_dim_raises_on_card(cuda_device):
-    q = torch.zeros((1, 2, 64, 96), device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 96"):
+    """Head dims up to 256 run (padded where not instantiated); above 256
+    the reference's kernel cannot tile either, and the wrapper raises."""
+    q = torch.zeros((1, 2, 64, 288), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 288"):
         kernel.mha(q, q, q, sm_scale=1.0)
+
+
+@pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,d,hq,hkv,window,strided", [
+    (1, 1024, 16, 4, 1, 8, False),      # recurrentgemma-9b smoke: D=16
+    (2, 300, 16, 4, 2, 0, True),        # D=16: strided, ragged, causal
+    (1, 1024, 40, 4, 1, 8, False),      # d=40, padded to 64
+    (2, 300, 40, 8, 2, 64, True),       # d=40 from strided views
+], ids=["d16", "d16_s300_strided", "d40", "d40_s300_strided"])
+def test_small_and_padded_head_dims_match_plain_version(
+        cuda_device, dtype, tol, b, s, d, hq, hkv, window, strided):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def make(h):
+        if strided:
+            return torch.randn((b, s, h, d), generator=gen,
+                               device=cuda_device).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen,
+                           device=cuda_device).to(dtype)
+    q, k, v = make(hq), make(hkv), make(hkv)
+    kernel.launches = 0
+    got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=True,
+                     window=window)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert got.shape == q.shape and got.is_contiguous()
+    want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=True,
+                         window=window)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def test_smoke_forward_on_card_matches_cpu(cuda_device):
@@ -338,3 +369,50 @@ def test_calibrate_and_quick_suite_on_card(cuda_device):
     assert mm_kernel.launches == len(sz.gemm_kernels) * runs
     assert rms_kernel.launches == runs
     assert len(suite) == 10 and all(t > 0 for t in suite.measured_s)
+
+
+def _device_files_open(pid: int) -> int:
+    """Open files of the process on /dev/nvidia*: held by any process with
+    a CUDA context, by none that has only imported torch."""
+    import os
+    from pathlib import Path
+    n = 0
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            n += os.readlink(fd).startswith("/dev/nvidia")
+        except OSError:
+            continue
+    return n
+
+
+def test_prediction_server_holds_no_cuda_context(cuda_device):
+    """The port's prediction server prices with numpy: started by
+    ``subproc`` beside a process that holds a context, and asked for an
+    argmin, it holds none of the card's device files open (this process
+    does), and nvidia-smi does not list it."""
+    import os
+    import subprocess
+
+    from repro_torch.core.workload import (TileConfig, WorkloadTable,
+                                           gemm_workload)
+    from repro_torch.serve import subproc
+    from repro_torch.serve.client import PredictionClient
+    torch.zeros(1, device=cuda_device)          # this process: a context
+    torch.cuda.synchronize()
+    proc, host, port = subproc.start_server_subprocess()
+    try:
+        with PredictionClient(host, port) as client:
+            table = WorkloadTable.tile_lattice(
+                gemm_workload("g", 4096, 4096, 4096, precision="bf16"),
+                [TileConfig(128, 128, 64), TileConfig(128, 256, 64)])
+            assert client.argmin(table, "h100", deadline_s=60.0).index in (
+                0, 1)
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+        assert proc.pid not in {int(w) for w in out.split() if w.isdigit()}
+        assert _device_files_open(os.getpid()) > 0
+        assert _device_files_open(proc.pid) == 0
+    finally:
+        subproc.stop_server_subprocess(proc)
