@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
-plain versions, serves h2o-danube-1.8b and mamba2-1.3b at full width, and
-runs the paper's loop (microbenchmark -> calibrate -> predict -> validate)
-on the card.
+plain versions, serves h2o-danube-1.8b and mamba2-1.3b at full width, runs
+the paper's loop (microbenchmark -> calibrate -> predict -> validate) on the
+card, and trains h2o-danube-1.8b at full width and depth.
 
     python3 chip_smoke.py
 
@@ -85,7 +85,26 @@ non-zero and prints no result):
                prompt's last-token logits of the kernel path held against
                the sequential cache prefill (danube in bf16, mamba2 in
                fp32).
-6. result    - one JSON line listing every kernel, then the last line
+6. train     - (a) h2o-danube-1.8b at full width with 2 layers, fp32:
+               two ``make_train_step`` steps (batch 2, seq 256) on the
+               card against the same steps on the CPU from one numpy
+               parameter tree (``params_to_jax`` / ``params_from_jax``):
+               loss, grad norm and every parameter after each step; then
+               microbatches 2 and remat "block" / "full" against the plain
+               steps on the card; all at the reference's atol 2e-5 / rtol
+               2e-4 (tests/test_substrate.py:213-215).  Resume through
+               ``launch.train.train`` (danube-smoke, 2 + 2 steps with a
+               checkpoint under ``build/``) against 4 straight steps at
+               1e-6 (:263).  (b) the shipped config (bf16, remat "block",
+               attn_chunk 1024) at full depth: 10 steps of batch 8 x seq
+               2048 through ``launch.train.train`` at lr 1e-3; each step's
+               loss, grad norm, lr and ms, the median step of steps 2-10,
+               tokens/s, model FLOPs and their share of the bf16 peak,
+               peak memory; losses finite and falling (mean of the last
+               three below the first three).  No kernel is launched in the
+               phase: the model trains on its plain paths, as the
+               reference does.
+7. result    - one JSON line listing every kernel, then the last line
                ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
@@ -94,7 +113,10 @@ card is a full fp32 product.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -120,11 +142,17 @@ from repro_torch.kernels.rmsnorm import (  # noqa: E402
     kernel as rms_kernel, ref as rms_ref, rmsnorm)
 from repro_torch.kernels.ssd import (  # noqa: E402
     kernel as ssd_kernel, ref as ssd_ref)
+from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.launch.serve import serve, setup  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    jax_layout, params_from_jax, params_to_jax)
 from repro_torch.train.serve_step import (  # noqa: E402
     greedy_generate, make_prefill)
+from repro_torch.train.train_step import (  # noqa: E402
+    init_state, make_train_step)
 
 DANUBE = "h2o-danube-1.8b"
 MAMBA2 = "mamba2-1.3b"
@@ -1437,6 +1465,179 @@ def generation_request(arch: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 6
+
+# Card against CPU, and one configuration against another on the card: the
+# reference's own test_grad_accum_matches_full_batch tolerance
+# (tests/test_substrate.py:213-215); resume against a straight run: its
+# test_train_resume_from_checkpoint_exact tolerance (:263).
+TRAIN_TOL = {"atol": 2e-5, "rtol": 2e-4}
+RESUME_TOL = 1e-6
+CHECK_BATCH, CHECK_SEQ, CHECK_STEPS, CHECK_LAYERS = 2, 256, 2, 2
+CHECK_LR = 1e-3
+# The full model: 16,384 tokens a step; S = 2048 > attn_chunk = 1024, so
+# the chunked attention path runs.  lr 1e-3: at danube's init scale
+# (|w| ~ 2560^-0.5 ~ 0.02) a bf16 weight drops updates under ~6e-5, which
+# the default 3e-4's first warmup step (6e-5) would barely clear.
+FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_LR = 8, 2048, 10, 1e-3
+
+
+def _flat(tree, prefix=""):
+    for key, val in sorted(tree.items()):
+        if isinstance(val, dict):
+            yield from _flat(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def trees_close(what: str, got: dict, want: dict, tol: dict) -> float:
+    """Every leaf of two reference-layout trees of CPU tensors within
+    ``tol``; returns the largest absolute difference."""
+    got, want = dict(_flat(got)), dict(_flat(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves differ")
+    return max(check_close(f"{what} {name}", got[name], want[name], **tol)
+               for name in want)
+
+
+def train_steps(tree, cfg, device, *, microbatches: int = 1) -> list:
+    """CHECK_STEPS steps of ``make_train_step`` from the numpy params
+    ``tree``: per step (loss, grad norm, params in the reference layout)."""
+    model = params_from_jax(tree, cfg, device=device)
+    state = init_state(model)
+    step = make_train_step(model, lr=CHECK_LR, microbatches=microbatches)
+    data = SyntheticLMData(cfg, batch=CHECK_BATCH, seq_len=CHECK_SEQ,
+                           seed=SEED)
+    out = []
+    for i in range(CHECK_STEPS):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(i).items()}
+        state, metrics = step(state, batch)
+        out.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                    jax_layout(state["params"])))
+    return out
+
+
+def train_checks() -> None:
+    """(a) h2o-danube-1.8b at full width, CHECK_LAYERS layers, fp32: the
+    card's steps against the CPU's from one numpy parameter tree, then
+    microbatches 2 and remat block / full against the plain steps on the
+    card; and resume through ``launch.train.train`` (danube-smoke: the
+    launcher takes the shipped configs only)."""
+    t0 = time.perf_counter()
+    cfg = get_config(DANUBE).replace(n_layers=CHECK_LAYERS, dtype="float32",
+                                     param_dtype="float32", remat="none")
+    tree = params_to_jax(build(cfg, "cpu").init(generator(SEED, "cpu")))
+    cpu = train_steps(tree, cfg, "cpu")
+    card = train_steps(tree, cfg, "cuda")
+    for i, ((l_c, g_c, p_c), (l_g, g_g, p_g)) in enumerate(zip(cpu, card)):
+        check_close("card vs cpu loss", torch.tensor(l_g), torch.tensor(l_c),
+                    **TRAIN_TOL)
+        check_close("card vs cpu grad norm", torch.tensor(g_g),
+                    torch.tensor(g_c), **TRAIN_TOL)
+        err = trees_close("card vs cpu params", p_g, p_c, TRAIN_TOL)
+        phase("train", check="card_vs_cpu", step=i + 1,
+              loss=f"{l_g:.6f}/{l_c:.6f}", grad_norm=f"{g_g:.6f}/{g_c:.6f}",
+              params_max_abs_err=f"{err:.3e}", tol=TRAIN_TOL)
+    del cpu
+    variants = {"microbatches=2": (cfg, 2),
+                "remat=block": (cfg.replace(remat="block"), 1),
+                "remat=full": (cfg.replace(remat="full"), 1)}
+    for name, (vcfg, micro) in variants.items():
+        other = train_steps(tree, vcfg, "cuda", microbatches=micro)
+        errs = []
+        for (l_a, g_a, p_a), (l_b, g_b, p_b) in zip(other, card):
+            check_close(f"{name} loss", torch.tensor(l_a), torch.tensor(l_b),
+                        **TRAIN_TOL)
+            check_close(f"{name} grad norm", torch.tensor(g_a),
+                        torch.tensor(g_b), **TRAIN_TOL)
+            errs.append(trees_close(f"{name} params", p_a, p_b, TRAIN_TOL))
+        phase("train", check=f"{name}_vs_plain", steps=CHECK_STEPS,
+              params_max_abs_err=f"{max(errs):.3e}", tol=TRAIN_TOL)
+        del other
+    del card, tree
+    torch.cuda.empty_cache()
+
+    ckpt_dir = ROOT / "build" / "train_resume"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(smoke=True, batch=4, seq=64, lr=CHECK_LR, log_every=0,
+              seed=SEED, device="cuda")
+    straight = train(DANUBE, steps=4, **kw)
+    train(DANUBE, steps=2, ckpt_dir=str(ckpt_dir), **kw)
+    resumed = train(DANUBE, steps=4, ckpt_dir=str(ckpt_dir), **kw)
+    if resumed["losses"] != straight["losses"][2:]:
+        raise AssertionError(f"resumed losses {resumed['losses']} vs "
+                             f"{straight['losses'][2:]}")
+    err = trees_close("resumed params",
+                      jax_layout(resumed["state"]["params"]),
+                      jax_layout(straight["state"]["params"]),
+                      {"atol": RESUME_TOL, "rtol": 0.0})
+    phase("train", check="resume", config="danube-smoke", steps="2+2 vs 4",
+          checkpoints=sorted(p.name for p in ckpt_dir.iterdir()),
+          params_max_abs_err=f"{err:.3e}", tol=RESUME_TOL,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    shutil.rmtree(ckpt_dir)
+
+
+def model_flops_per_step(cfg, params: dict, tokens: int) -> float:
+    """6 x (weights that multiply) x tokens, plus 12 x layers x heads x
+    head dim x seq x tokens for attention's two products over all key
+    positions (PaLM's convention: forward and backward, no recompute)."""
+    weights = sum(p.numel() for name, p in params.items()
+                  if p.dim() >= 2 and (name != "tok_embed"
+                                       or cfg.tie_embeddings))
+    attention = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * FULL_SEQ
+    return (6 * weights + attention) * tokens
+
+
+def train_full() -> None:
+    """(b) h2o-danube-1.8b at full width and depth, the shipped config
+    (bf16, remat "block", attn_chunk 1024): FULL_STEPS steps through
+    ``launch.train.train`` with every launch count read around them."""
+    cfg = get_config(DANUBE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = train(DANUBE, smoke=False, steps=FULL_STEPS, batch=FULL_BATCH,
+                seq=FULL_SEQ, lr=FULL_LR, log_every=0, seed=SEED,
+                device="cuda")
+    launches = read_launches()
+    check_launches("training", launches, {name: 0 for name in KERNELS})
+    hist = out["history"]
+    for i, h in enumerate(hist):
+        phase("train", arch=DANUBE, step=i + 1, loss=f"{h['loss']:.6f}",
+              grad_norm=f"{h['grad_norm']:.6f}", lr=f"{h['lr']:.3e}",
+              ms=f"{h['ms']:.3f}")
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    if len(hist) != FULL_STEPS or not all(
+            map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"losses {losses}, grad norms {gnorms}")
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first three {first:.4f}, "
+                             f"last three {last:.4f}")
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    tokens = FULL_BATCH * FULL_SEQ
+    flops = model_flops_per_step(cfg, out["state"]["params"], tokens)
+    phase("train", arch=DANUBE, batch=FULL_BATCH, seq=FULL_SEQ,
+          tokens_per_step=tokens, steps=FULL_STEPS,
+          step_ms_median_2_to_10=f"{step_ms:.3f}",
+          step_ms_range=f"{min(h['ms'] for h in hist[1:]):.3f}-"
+                        f"{max(h['ms'] for h in hist[1:]):.3f}",
+          first_step_ms=f"{hist[0]['ms']:.3f}",
+          tokens_per_s=f"{tokens / step_ms * 1e3:.1f}",
+          model_flops_per_step=f"{flops:.4e}",
+          bf16_peak_share=f"{flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]:.4f}",
+          loss_first3=f"{first:.4f}", loss_last3=f"{last:.4f}",
+          max_memory_allocated_gb=round(
+              torch.cuda.max_memory_allocated() / 1e9, 2),
+          max_memory_reserved_gb=round(
+              torch.cuda.max_memory_reserved() / 1e9, 2),
+          launches=launches)
+    del out
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -1457,6 +1658,12 @@ def main() -> int:
     for arch in (DANUBE, MAMBA2):
         prefill_requests(arch, entries)
         generation_request(arch)
+    torch.cuda.empty_cache()
+    reset_launches()
+    train_checks()
+    train_full()
+    check_launches("the train phase", read_launches(),
+                   {name: 0 for name in KERNELS})
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,9 @@ entry point.  It is compiled at first use, on the machine with the card, into
 (a directory ``.gitignore`` lists).  The hash covers the source and the
 compiler flags, so an edited source is rebuilt and an unchanged one is loaded
 from the earlier build.  Nothing here runs when a module is imported.
+
+``refuse_autograd`` is the wrappers' shared guard: a kernel launched through
+ctypes writes a fresh tensor that autograd cannot see into.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -26,6 +31,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when gradients are being recorded and an input requires grad.
+
+    The kernels are forward-only, as the reference's are (no Pallas kernel
+    defines a ``custom_vjp``, and ``jax.grad`` through one raises).  A ctypes
+    launch returns a tensor without a ``grad_fn``, so the gradients to its
+    inputs would silently go missing.  Raised on either device, so a CPU
+    run fails where the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel is forward-only and cannot record "
+            f"gradients: call it under torch.no_grad() / "
+            f"torch.inference_mode(), or train with use_flash_kernel=False "
+            f"(the plain path), as the reference does")
 
 
 def nvcc_path() -> str:

@@ -103,6 +103,7 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     costs a padded copy of q, k and v and of the output, and the kernel
     does the work of the padded width (d = 40 runs at 64: 1.6x)."""
     global launches
+    _build.refuse_autograd("flash attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, sm_scale=sm_scale, causal=causal,
                              window=window)

@@ -68,6 +68,7 @@ def rmsnorm_2d(x, w, *, eps: float = 1e-6):
     one block of 256 threads that holds it in registers, and a narrower or
     wider row one warp."""
     global launches
+    _build.refuse_autograd("rmsnorm", x, w)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, w, eps=eps)
     if x.device.type != "cuda":

@@ -80,6 +80,7 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = DEFAULT_CHUNK):
     (A = -exp(a_log)); b, c: (B, S, N).  Returns (B, S, H, P) in x's dtype.
     S must be a multiple of min(chunk, S)."""
     global launches
+    _build.refuse_autograd("SSD scan", x, dt, a_log, b, c)
     chunk = min(chunk, x.shape[1])
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, a_log, b, c, chunk=chunk)

@@ -1,13 +1,19 @@
-"""Load the reference's parameter pytree into the port's model, so that both
-packages compute the same function.
+"""Carry parameters and train states between the reference's pytree layout
+and the port's model, in both directions, so that both packages compute the
+same function and a checkpoint written by either restores in the other.
 
 The reference (``repro/models/model.py:33-72``) keeps each block parameter
 STACKED over groups under ``params["groups"]["b<i>"]``, leading dim
 n_groups; the port keeps one module per group (``groups.<g>.b<i>``).  Leaf
-names are the same on both sides, so the mapping is by path.
+names are the same on both sides, so the mapping is by path.  A train state
+(``train.train_step.init_state``) holds named tensors in the port's names:
+``params``, the optimizer's ``mu`` / ``nu`` and, with compressed gradients,
+``residuals``; each maps the same way, and the optimizer's ``step`` as it
+is.
 """
 from __future__ import annotations
 
+from collections import defaultdict
 from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -70,3 +76,121 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
             put(f"groups.{g}.{rest}", a[g])
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _nest(flat: Mapping[str, object]) -> Dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def jax_layout(named: Mapping[str, torch.Tensor]) -> Dict:
+    """Tensors named as the port's parameters (``groups.<g>.b0.attn.wq``, a
+    model's ``named_parameters`` or state dict, its gradients or moments) ->
+    the reference's nested layout, group leaves stacked over the groups
+    (``{"groups": {"b0": {"attn": {"wq": (n_groups, ...)}}}}``).  Leaves are
+    CPU copies, detached, in their own dtype."""
+    flat: Dict[str, torch.Tensor] = {}
+    stacks = defaultdict(dict)
+    for path, t in named.items():
+        if path.startswith("groups."):
+            g, rest = path[len("groups."):].split(".", 1)
+            stacks[f"groups.{rest}"][int(g)] = t.detach()
+        else:
+            flat[path] = t.detach().to("cpu", copy=True)
+    for path, per_group in stacks.items():
+        if sorted(per_group) != list(range(len(per_group))):
+            raise ValueError(f"{path}: groups {sorted(per_group)} are not "
+                             f"0..n-1")
+        flat[path] = torch.stack([per_group[g] for g in
+                                  range(len(per_group))]).cpu()
+    return _nest(flat)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        # numpy holds bf16 only through ml_dtypes (JAX's dtype package);
+        # the bits are carried over as they are
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_jax(model: LanguageModel) -> Dict:
+    """The inverse of ``params_from_jax``: the model's parameters as the
+    reference's params pytree, numpy leaves in the stacked ``groups``
+    layout, each in its parameter's dtype (bf16 leaves as ``ml_dtypes``
+    arrays, which is how the reference hands them to numpy)."""
+    return _map_leaves(jax_layout(model.state_dict()), _numpy)
+
+
+def _map_leaves(tree: Mapping, fn) -> Dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def state_to_jax(state: Mapping) -> Dict:
+    """A port train state -> the reference's train-state pytree
+    (``repro/train/train_step.py:init_state``): ``params``, ``opt`` (``mu``,
+    ``nu``, ``step``) and, when present, ``residuals``, in the stacked
+    layout.  Leaves are CPU tensor copies in their own dtype: what
+    ``train.checkpoint.save`` writes under the reference's leaf names
+    (``params/groups/b0/attn/wq``, ``opt/step``)."""
+    opt = state["opt"]
+    tree = {"params": jax_layout(state["params"]),
+            "opt": {"mu": jax_layout(opt["mu"]), "nu": jax_layout(opt["nu"]),
+                    "step": opt["step"].detach().to("cpu", copy=True)}}
+    if "residuals" in state:
+        tree["residuals"] = jax_layout(state["residuals"])
+    return tree
+
+
+def _unstack(tree: Mapping) -> Dict[str, object]:
+    """The reference's nested layout -> leaves named as the port's."""
+    flat: Dict[str, object] = {}
+    for path, a in _leaves(tree):
+        if path.startswith("groups."):
+            rest = path[len("groups."):]
+            for g in range(a.shape[0]):
+                flat[f"groups.{g}.{rest}"] = a[g]
+        else:
+            flat[path] = a
+    return flat
+
+
+@torch.no_grad()
+def state_from_jax(tree: Mapping, state: Dict) -> Dict:
+    """Copy a reference-layout train state (``state_to_jax``'s layout; numpy
+    or tensor leaves, as ``train.checkpoint.restore`` returns them) into the
+    port train state ``state`` IN PLACE, each leaf cast to the dtype of the
+    tensor it fills; returns ``state``.  Both must hold the same leaves:
+    a missing or extra leaf, or a shape that differs, raises."""
+    pairs = [(tree["params"], state["params"]),
+             (tree["opt"]["mu"], state["opt"]["mu"]),
+             (tree["opt"]["nu"], state["opt"]["nu"])]
+    if "residuals" in state:
+        pairs.append((tree["residuals"], state["residuals"]))
+    for sub, named in pairs:
+        flat = _unstack(sub)
+        if set(flat) != set(named):
+            raise KeyError(f"leaves differ: only in the tree "
+                           f"{sorted(set(flat) - set(named))}, only in the "
+                           f"state {sorted(set(named) - set(flat))}")
+        for path, t in named.items():
+            src = flat[path]
+            if not isinstance(src, torch.Tensor):
+                src = _tensor(src, "cpu", t.dtype)
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{path}: shape {tuple(src.shape)} does "
+                                 f"not fit {tuple(t.shape)}")
+            t.copy_(src)
+    step = state["opt"]["step"]
+    state["opt"]["step"] = torch.as_tensor(np.asarray(
+        tree["opt"]["step"])).to(dtype=torch.int32, device=step.device)
+    return state

@@ -1,21 +1,32 @@
 """Language model: a stack of block groups following ``cfg.pattern``, with
-forward logits, prefill and one-token decode.  Counterpart of
-``repro/models/model.py`` for the dense and SSM (mamba2) families.
+forward logits, the training loss, prefill and one-token decode.
+Counterpart of ``repro/models/model.py`` for the dense and SSM (mamba2)
+families.
 
 The reference stores each parameter STACKED over groups and runs them with
 ``lax.scan``; here each group is its own module and a Python loop runs them
-(``models/convert.py`` maps the stacked layout onto this one).  Remat only
-matters for training, which is not ported yet.  The reference's ``prefix``
-(dense-first MoE), ``encoder`` and ``mtp`` parts raise until their families
-are ported (ROADMAP.md, Queue A); until then the ``memory_embeds`` argument
-those families feed is left out of the signatures.
+(``models/convert.py`` maps the stacked layout onto this one).  As in the
+reference, ``cfg.remat`` wraps each group's forward when gradients are
+recorded: ``"full"`` keeps only the group's input and recomputes the rest
+in the backward pass, ``"block"`` also keeps the outputs of the weight
+products (``aten.mm``; the reference's ``dots_with_no_batch_dims_saveable``)
+and recomputes attention's batched products and the elementwise work.
+
+Parameters are made with ``requires_grad=False``; ``train.train_step
+.init_state`` turns gradients on, and serving runs under
+``torch.inference_mode()``.  The reference's ``prefix`` (dense-first MoE),
+``encoder`` and ``mtp`` parts raise until their families are ported
+(ROADMAP.md, Queue A); until then the ``memory_embeds`` argument those
+families feed is left out of the signatures.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
@@ -78,16 +89,46 @@ class LanguageModel(nn.Module):
         head = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
         return (x @ head.to(dtype_of(cfg))) * cfg.logit_scale
 
+    def _group_apply(self, group: nn.ModuleDict, x):
+        for block in group.values():
+            x = block(x, self.cfg)
+        return x
+
+    def _run_groups(self, x):
+        remat = self.cfg.remat
+        if remat not in ("none", *_REMAT_CONTEXTS):
+            raise ValueError(f"remat={remat!r}: one of none, block, full")
+        for group in self.groups:
+            if remat == "none" or not torch.is_grad_enabled():
+                x = self._group_apply(group, x)
+            else:
+                x = ckpt.checkpoint(self._group_apply, group, x,
+                                    use_reentrant=False,
+                                    context_fn=_REMAT_CONTEXTS[remat])
+        return x
+
     def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B, S, V), aux_loss scalar)."""
         cfg = self.cfg
-        x = self._embed(tokens)
-        for group in self.groups:
-            for block in group.values():
-                x = block(x, cfg)
+        x = self._run_groups(self._embed(tokens))
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return self._logits(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
+
+    # ----------------------------------------------------------------- loss
+    def loss_fn(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """batch: tokens (B,S), labels (B,S) (-100 = ignore) -> (loss,
+        {"xent", "aux"}): the mean token cross entropy over valid labels
+        (label >= 0), in fp32, plus the blocks' aux loss."""
+        logits, aux = self.forward(batch["tokens"])
+        labels = batch["labels"]
+        valid = labels >= 0
+        safe = torch.where(valid, labels, 0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        denom = torch.clamp(valid.sum(), min=1)
+        xent = torch.where(valid, nll, 0.0).sum() / denom
+        return xent + aux, {"xent": xent, "aux": aux}
 
     # --------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> Dict:
@@ -122,6 +163,22 @@ class LanguageModel(nn.Module):
     # ----------------------------------------------------------- analytics
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+def _keep_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="block"``: keep what a weight
+    product (``x @ W``, dispatched as ``aten.mm``) returns, recompute the
+    rest."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXTS = {
+    "full": ckpt.noop_context_fn,
+    "block": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                               _keep_weight_products),
+}
 
 
 def build(cfg: ModelConfig, device: DeviceLike = None) -> LanguageModel:

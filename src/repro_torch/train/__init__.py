@@ -1,0 +1,1 @@
+from . import checkpoint, serve_step, train_step  # noqa: F401

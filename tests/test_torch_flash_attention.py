@@ -286,3 +286,20 @@ def test_padded_path_matches_pallas_kernel_interpret(d):
                         window=16)[..., :d]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
+
+
+def test_wrapper_refuses_autograd_as_the_reference_does():
+    """The kernel is forward-only (the reference's raises under
+    ``jax.grad``); recording gradients through it raises on the CPU too,
+    and runs under ``no_grad``."""
+    q = torch.randn(1, 4, 16, 64, requires_grad=True)
+    k = torch.randn(1, 2, 16, 64)
+    kernel.launches = 0
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernel.mha(q, k, k, sm_scale=0.125)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q, k, k)
+    with torch.no_grad():
+        out = kernel.mha(q, k, k, sm_scale=0.125)
+    assert out.shape == q.shape and kernel.launches == 0
+    assert kernel.mha(q.detach(), k, k, sm_scale=0.125).grad_fn is None

@@ -416,3 +416,80 @@ def test_prediction_server_holds_no_cuda_context(cuda_device):
         assert _device_files_open(proc.pid) == 0
     finally:
         subproc.stop_server_subprocess(proc)
+
+
+def test_kernel_wrappers_refuse_autograd_on_card(cuda_device):
+    """A ctypes launch would return an output without a grad_fn and drop
+    the gradients; each wrapper raises instead, before any launch."""
+    def t(*shape, grad=False):
+        return torch.randn(*shape, device=cuda_device, requires_grad=grad)
+    calls = {
+        "flash_attention": lambda: kernel.mha(
+            t(1, 4, 128, 64, grad=True), t(1, 2, 128, 64),
+            t(1, 2, 128, 64), sm_scale=0.125),
+        "ssd": lambda: ssd_kernel.ssd(
+            t(1, 64, 2, 16, grad=True), torch.rand(1, 64, 2,
+                                                   device=cuda_device),
+            torch.zeros(2, device=cuda_device), t(1, 64, 16), t(1, 64, 16),
+            chunk=16),
+        "matmul": lambda: mm_kernel.matmul_tiled(t(64, 64),
+                                                 t(64, 64, grad=True)),
+        "rmsnorm": lambda: rms_kernel.rmsnorm_2d(t(8, 64, grad=True),
+                                                 torch.ones(64,
+                                                            device=cuda_device)),
+    }
+    mods = {"flash_attention": kernel, "ssd": ssd_kernel,
+            "matmul": mm_kernel, "rmsnorm": rms_kernel}
+    for name, call in calls.items():
+        mods[name].launches = 0
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call()
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+        assert out.grad_fn is None and mods[name].launches == 1, name
+
+
+@pytest.mark.parametrize("remat,microbatches",
+                         [("none", 1), ("block", 2), ("full", 1)])
+def test_smoke_train_steps_on_card_match_cpu(cuda_device, remat,
+                                             microbatches):
+    """danube-smoke trained 3 steps on the card and on the CPU from the same
+    weights and batches, at the reference's grad-accumulation tolerance
+    (tests/test_substrate.py:213-215); no kernel is launched."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.convert import params_from_jax, params_to_jax
+    from repro_torch.train import train_step
+    cfg = get_config("h2o-danube-1.8b", smoke=True).replace(remat=remat)
+    tree = params_to_jax(build(cfg, "cpu").init(generator(0, "cpu")))
+    data = SyntheticLMData(cfg, batch=4, seq_len=64, seed=1)
+    runs = {}
+    kernel.launches = 0
+    for dev in ("cpu", cuda_device):
+        model = params_from_jax(tree, cfg, device=dev)
+        state = train_step.init_state(model)
+        step = train_step.make_train_step(model, lr=1e-3,
+                                          microbatches=microbatches)
+        losses = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch_at(i).items()}
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs[str(dev)] = (losses, params_to_jax(model))
+    assert kernel.launches == 0
+    cpu, card = runs["cpu"], runs[str(cuda_device)]
+    torch.testing.assert_close(torch.tensor(card[0]), torch.tensor(cpu[0]),
+                               atol=2e-5, rtol=2e-4)
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", torch.from_numpy(v)
+    got, want = dict(leaves(card[1])), dict(leaves(cpu[1]))
+    assert got.keys() == want.keys()
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], atol=2e-5,
+                                   rtol=2e-4, msg=name)

@@ -206,3 +206,16 @@ def test_kernel_source_is_found_and_hashed():
     for bm, bn in set(kernel.TILES[torch.bfloat16]) - set(
             kernel.TILES[torch.float32]):
         assert re.search(rf"launch_types<{bm}, {bn}, \d+, \d+, false>", src)
+
+
+def test_wrapper_refuses_autograd_as_the_reference_does():
+    a = torch.randn(16, 32, requires_grad=True)
+    b = torch.randn(32, 8)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernel.matmul_tiled(a, b)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernel.matmul_tiled(b.T.contiguous(), a.T.contiguous())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        matmul(a, b)
+    with torch.no_grad():
+        torch.testing.assert_close(kernel.matmul_tiled(a, b), a @ b)

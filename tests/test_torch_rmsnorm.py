@@ -150,3 +150,15 @@ def test_kernel_source_is_found_and_hashed():
     src = (_build.CSRC / "rmsnorm.cu").read_text()
     assert 'extern "C" int rmsnorm_fwd' in src
     assert "src/repro/kernels/rmsnorm/kernel.py" in src
+
+
+def test_wrapper_refuses_autograd_as_the_reference_does():
+    x = torch.randn(4, 64)
+    w = torch.ones(64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        kernel.rmsnorm_2d(x, w)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rmsnorm(x[None], w)
+    with torch.no_grad():
+        out = kernel.rmsnorm_2d(x.requires_grad_(True), w)
+    assert out.grad_fn is None and out.shape == x.shape

@@ -203,3 +203,24 @@ def test_plain_tf32_variant_fits_the_kernel_source():
     assert "mma_tf32(c, a_lo, b_hi);" in src
     assert "mma_tf32(c, a_hi, b_hi);" in tf32
     assert "a_lo, b_hi" not in tf32 and "a_hi, b_lo" not in tf32
+
+
+def test_wrapper_refuses_autograd_as_the_reference_does():
+    """The kernel is forward-only; recording gradients through it raises on
+    the CPU too (the model's plain path, ``use_kernel=False``, trains)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 32, 2, 16, generator=g, requires_grad=True)
+    dt = torch.rand(1, 32, 2, generator=g) + 0.1
+    a_log = torch.zeros(2, requires_grad=True)
+    b, c = torch.randn(2, 1, 32, 16, generator=g)
+    for args in ((x, dt, a_log.detach(), b, c),
+                 (x.detach(), dt, a_log, b, c)):
+        with pytest.raises(RuntimeError, match="forward-only"):
+            kernel.ssd(*args, chunk=16)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            ssd_scan(*args, chunk=16)
+    plain = ssd_scan(x, dt, a_log, b, c, chunk=16, use_kernel=False)
+    plain.sum().backward()
+    assert x.grad is not None and a_log.grad is not None
+    with torch.inference_mode():
+        kernel.ssd(x, dt, a_log, b, c, chunk=16)
