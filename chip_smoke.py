@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
-plain versions, serves h2o-danube-1.8b and mamba2-1.3b at full width, runs
-the paper's loop (microbenchmark -> calibrate -> predict -> validate) on the
-card, and trains h2o-danube-1.8b at full width and depth.
+plain versions, serves h2o-danube-1.8b, mamba2-1.3b, qwen3-moe-235b-a22b and
+deepseek-v3-671b at full width (the MoE models with their depth cut to fit
+the card), runs the paper's loop (microbenchmark -> calibrate -> predict ->
+validate) on the card, and trains h2o-danube-1.8b at full width and depth.
 
     python3 chip_smoke.py
 
@@ -23,9 +24,11 @@ non-zero and prints no result):
                flash_attention: fp32 at 5e-5 (the reference's kernel
                tolerance, tests/test_kernels.py:22), bf16 at atol 1e-3 +
                rtol 1e-2; head dims 16/64/80/128/256, recurrentgemma-9b's
-               shape (D=256, MQA, window 2048), its smoke config's (D=16)
-               and a head dim the wrapper pads (d=40 runs at 64), each
-               timed in both dtypes.
+               shape (D=256, MQA, window 2048), its smoke config's (D=16),
+               a head dim the wrapper pads (d=40 runs at 64), qwen3-moe's
+               (64 query heads on 4 kv heads, D=128, S=8192) and
+               deepseek-v3's dense prefix block's (128 heads of 128,
+               S=2048), each timed in both dtypes.
                ssd (fp32 only, as the model sends it): 1e-4 against the
                plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
@@ -43,7 +46,9 @@ non-zero and prints no result):
                CUDA-core and the 3xTF32 bounds) and in bf16.  rmsnorm
                (fp32 and bf16): the reference's 5e-5 / 5e-2 over rows
                1/100/65536 x D 8/64/1024/2560/8192/16384 and a
-               leading-dims case.
+               leading-dims case; at 65536 x 2560 the kernel and
+               ``rms_norm`` timed interleaved, five timings each, and
+               compared by their medians.
    loop      - the paper's loop at the card's sizes, through
                ``launch.validate.validate_device``: calibrate_device
                (measured parameters beside the datasheet h100.json values;
@@ -73,25 +78,38 @@ non-zero and prints no result):
                the card's device files open (no CUDA context).  Host-clock
                latencies (argmin over each transport, a 102,400-row
                lattice with the pool's start) are printed, not gated.
-4. prefill   - each model's main path: ``make_prefill`` at full width and
-               depth (random weights from a seed) for one request of 8192
-               tokens, with every kernel's launch count read around it;
-               held against the plain path in fp32, timed in bf16 (and
-               held there too for danube; see BF16_GATED).
-               h2o-danube-1.8b reaches flash attention 24 times, mamba2-1.3b
-               the SSD scan 48 times.
+4. prefill   - each model's main path: ``make_prefill`` at full width
+               (random weights from a seed) for one request, with every
+               kernel's launch count read around it; held against the
+               plain path in fp32, timed in bf16 (and held there too but
+               for mamba2; see BF16_GATED).  h2o-danube-1.8b (full depth,
+               8192 tokens) reaches flash attention 24 times, mamba2-1.3b
+               (full depth, 8192) the SSD scan 48 times, qwen3-moe-235b-a22b
+               (8 of 94 layers, 8192) flash attention 8 times and
+               deepseek-v3-671b (one dense prefix and two MoE layers of 61,
+               2048 tokens) once, in its prefix (MLA reaches no kernel, as
+               in the reference); PREFILL gives the cuts and why.  The fp32
+               check runs at depth 2.  For the MoE models the lines also
+               count, with ``models.moe.route``, the assignments each layer
+               drops and those the fp32 paths route differently.
 5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens)
-               for each model; tokens checked, no kernel launched, the
+               for each model (``greedy_generate`` on the depth-cut config
+               for the MoE models); tokens checked, no kernel launched, the
                prompt's last-token logits of the kernel path held against
-               the sequential cache prefill (danube in bf16, mamba2 in
-               fp32).
+               the sequential cache prefill (danube in bf16, the others in
+               fp32; the MoE models on PROMPT_CHECK_ROWS of the prompt
+               at their fp32 check depth with the capacity factor raised
+               to E/k, so nothing drops, and the served forward's drops
+               and the two paths' route flips printed).
 6. train     - (a) h2o-danube-1.8b at full width with 2 layers, fp32:
                two ``make_train_step`` steps (batch 2, seq 256) on the
                card against the same steps on the CPU from one numpy
                parameter tree (``params_to_jax`` / ``params_from_jax``):
                loss, grad norm and every parameter after each step; then
                microbatches 2 and remat "block" / "full" against the plain
-               steps on the card; all at the reference's atol 2e-5 / rtol
+               steps on the card; qwen3moe-smoke and dsv3-smoke (the MoE
+               dispatch, MLA, the dense prefix, the aux and MTP losses)
+               card against CPU; all at the reference's atol 2e-5 / rtol
                2e-4 (tests/test_substrate.py:213-215).  Resume through
                ``launch.train.train`` (danube-smoke, 2 + 2 steps with a
                checkpoint under ``build/``) against 4 straight steps at
@@ -104,7 +122,9 @@ non-zero and prints no result):
                three below the first three).  No kernel is launched in the
                phase: the model trains on its plain paths, as the
                reference does.
-7. result    - one JSON line listing every kernel, then the last line
+7. result    - one JSON line listing every kernel (a kernel's launches:
+               the sum over the main paths' counted runs, each path's
+               count under launches_by_path), then the last line
                ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
@@ -112,6 +132,7 @@ card is a full fp32 product.  Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -147,6 +168,7 @@ from repro_torch.launch.serve import serve, setup  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     jax_layout, params_from_jax, params_to_jax)
 from repro_torch.train.serve_step import (  # noqa: E402
@@ -156,8 +178,25 @@ from repro_torch.train.train_step import (  # noqa: E402
 
 DANUBE = "h2o-danube-1.8b"
 MAMBA2 = "mamba2-1.3b"
+QWEN3 = "qwen3-moe-235b-a22b"
+DSV3 = "deepseek-v3-671b"
 SEED = 0
 PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
+# Each served model's prefill: (prompt length, the served config's depth
+# cut, the fp32 check's depth cut), widths as published.  One 80 GB card
+# forces the MoE cuts: in bf16 a qwen3-moe block is 4.97 GB (8 of 94 blocks
+# and the 2.49 GB embedding and head: 42.3 GB), a deepseek-v3 MoE block
+# 23.0 GB (its dense prefix block 1.03 GB, embedding and head 3.71 GB, MTP
+# 1.23 GB: 52.0 GB for one prefix and two MoE blocks of 61).  The fp32
+# checks hold the kernel path against the plain one at depth 2 (24.9 and
+# 58.0 GB).  deepseek-v3 prefills 2048 tokens: MLA materialises its fp32
+# scores whole, as the reference does, 2.15 GB a tensor at 2048 (8.6 GB at
+# 4096, which does not fit beside the weights).
+PREFILL = {DANUBE: (PREFILL_LEN, {}, {}),
+           MAMBA2: (PREFILL_LEN, {}, {}),
+           QWEN3: (PREFILL_LEN, {"n_layers": 8}, {"n_layers": 2}),
+           DSV3: (2048, {"n_layers": 3, "first_dense": 1},
+                  {"n_layers": 2, "first_dense": 1})}
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 32
 KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel,
            "matmul": mm_kernel, "rmsnorm": rms_kernel}
@@ -199,8 +238,26 @@ BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
 # rounding.  For mamba2 the bf16 difference is printed beside the fp32 gate,
 # not gated, and the prompt logits of make_prefill are held against the
 # sequential cache prefill in fp32 (the served weights cast up).
-BF16_GATED = {DANUBE: True, MAMBA2: False}
-PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32}
+# The MoE models' bf16 logits held the bound on the card with room
+# (qwen3-moe 3.906e-2, deepseek-v3 6.445e-2: about two bf16 units of a
+# logit near 7), so they are gated as danube's are.
+BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True}
+# The MoE models' prompt logits are held in fp32, on the prefill phase's
+# fp32 model (its depth cut: an fp32 copy of the served model would not fit
+# beside it), with the capacity factor raised to E/k on both sides, so that
+# cap = T and neither path drops an assignment (the served forward over
+# 4 x 256 tokens drops by design, decode steps never do).  In bf16 the two
+# paths route part of the prompt's assignments differently (rounding near
+# ties), which moves the logits by up to the bf16 bound itself.  At
+# cap = T the fp32 capacity buffer and the expert products' output are
+# E x T x d each: qwen3-moe checks the whole 4 x 256 prompt (2.1 GB each
+# beside its 24.9 GB model); deepseek-v3 its first 2 rows (3.8 GB each beside
+# 58.0 GB; the whole prompt's 7.5 GB ran out of memory), still more than one
+# row, so a fault across rows of the flattened dispatch or of the caches'
+# batch index shows.
+PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32,
+                      QWEN3: torch.float32, DSV3: torch.float32}
+PROMPT_CHECK_ROWS = {QWEN3: GEN_BATCH, DSV3: 2}
 # SSD kernel against ``ssd_chunked`` at the same chunk: the same algorithm
 # in fp32 with its sums in another order (64-deep 3xTF32 partials, a warp
 # scan for the cumsum, the decay applied after the C.h product).
@@ -309,14 +366,18 @@ def read_launches() -> dict:
 
 def expected_launches(cfg) -> dict:
     """Kernel launches of one ``make_prefill`` request with the kernels on:
-    one flash-attention call per attention block, one SSD call per ssm
-    block; the models never reach the matmul or rmsnorm kernels, as in the
-    reference."""
-    per_group = {"flash_attention": sum(k in ("attn", "local_attn")
-                                        for k in cfg.pattern),
-                 "ssd": sum(k == "ssm" for k in cfg.pattern),
-                 "matmul": 0, "rmsnorm": 0}
-    return {name: cfg.n_groups * n for name, n in per_group.items()}
+    one flash-attention call per GQA attention block (``attn``,
+    ``local_attn``, ``moe`` without MLA, and each dense prefix block), none
+    for MLA, one SSD call per ssm block; the models never reach the matmul
+    or rmsnorm kernels, as in the reference."""
+    per_group = {"flash_attention": sum(
+        k in ("attn", "local_attn") or (k == "moe" and not cfg.use_mla)
+        for k in cfg.pattern),
+        "ssd": sum(k == "ssm" for k in cfg.pattern),
+        "matmul": 0, "rmsnorm": 0}
+    want = {name: cfg.n_groups * n for name, n in per_group.items()}
+    want["flash_attention"] += cfg.first_dense
+    return want
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -391,6 +452,14 @@ D16 = ("recurrentgemma-9b smoke S=8192 w=8 D=16", 1, 4, 1, PREFILL_LEN, 16,
        True, 8, True)
 D40 = ("padded d=40 S=8192 w=1024", 1, 8, 2, PREFILL_LEN, 40, True, 1024,
        True)
+# The MoE paths' calls, as the models hand them over: qwen3-moe's GQA
+# attention (64 query heads on 4 kv heads, head dim 128, causal) in its
+# 8192-token prefill, and deepseek-v3's dense prefix block (MHA, 128 heads
+# of 128) in its 2048-token prefill.
+QWEN3_ATTN = ("qwen3-moe S=8192 Hq=64 Hkv=4 D=128", 1, 64, 4, PREFILL_LEN,
+              128, True, 0, True)
+DSV3_PREFIX = ("deepseek-v3 prefix S=2048 H=128 D=128", 1, 128, 128, 2048,
+               128, True, 0, True)
 
 
 def sdpa_ms(q, k, v, *, sm_scale, window, reps) -> float:
@@ -484,7 +553,9 @@ def flash_attention_checks() -> dict:
     checks.append({k: main[k] for k in ("case", "dtype", "max_abs_err",
                                         "tol")})
     extra_shapes = {}
-    for key, spec in (("d256", D256), ("d16", D16), ("d40", D40)):
+    for key, spec in (("d256", D256), ("d16", D16), ("d40", D40),
+                      ("qwen3_moe", QWEN3_ATTN),
+                      ("dsv3_prefix", DSV3_PREFIX)):
         extra_shapes[key] = {"shape": case_shape(spec)}
         for dtype in (torch.float32, torch.bfloat16):
             case = timed_case(spec, dtype, gen)
@@ -808,6 +879,9 @@ RMS_ROWS = (1, 100, 65536)
 RMS_DIMS = (8, 64, 1024, 2560, 8192, 16384)   # every path of the kernel
 RMS_LEAD = (4, 2048, 2560)      # ops flattens the leading dims
 RMS_MAIN = (65536, 2560)        # the suite's rmsnorm_kernel case
+# The kernel and ``rms_norm`` at RMS_MAIN are timed interleaved, this many
+# timings of 20 calls each, and compared by their medians.
+RMS_TIMINGS = 5
 
 
 def rmsnorm_checks() -> dict:
@@ -842,12 +916,16 @@ def rmsnorm_checks() -> dict:
         err = check_close(f"rmsnorm main {RMS_MAIN} {dtype}",
                           rms_kernel.rmsnorm_2d(x, w), rms_ref.rmsnorm(x, w),
                           atol=MM_RMS_TOL[dtype], rtol=MM_RMS_TOL[dtype])
-        kernel_ms = cuda_ms(lambda: rms_kernel.rmsnorm_2d(x, w), reps=20,
-                            warmup=2)
+        kern, lib = [], []
+        for _ in range(RMS_TIMINGS):
+            kern.append(cuda_ms(lambda: rms_kernel.rmsnorm_2d(x, w),
+                                reps=20, warmup=2))
+            # Yardstick only (the port never calls it).
+            lib.append(cuda_ms(lambda: torch.nn.functional.rms_norm(
+                x, (d,), w, 1e-6), reps=20, warmup=2))
+        kernel_ms, library_ms = statistics.median(kern), \
+            statistics.median(lib)
         plain_ms = cuda_ms(lambda: rms_ref.rmsnorm(x, w), reps=5, warmup=1)
-        # Yardstick only (the port never calls it).
-        library_ms = cuda_ms(lambda: torch.nn.functional.rms_norm(
-            x, (d,), w, 1e-6), reps=20, warmup=2)
         size = x.element_size()
         bnd, bound_by = bound_ms(4.0 * r * d, size * (2.0 * r * d + d),
                                  torch.float32)
@@ -856,7 +934,10 @@ def rmsnorm_checks() -> dict:
               kernel_ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
               library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd:.4f}",
               bound_by=bound_by,
-              gb_per_s=f"{size * 2.0 * r * d / kernel_ms / 1e6:.1f}")
+              gb_per_s=f"{size * 2.0 * r * d / kernel_ms / 1e6:.1f}",
+              kernel_timings_ms=[round(t, 4) for t in kern],
+              library_timings_ms=[round(t, 4) for t in lib],
+              loses_to_library=kernel_ms > library_ms)
         timed[dtype] = (err, kernel_ms, plain_ms, library_ms, bnd, bound_by)
         del x, w
     torch.cuda.empty_cache()
@@ -1339,43 +1420,125 @@ def predict_serve(measured_hw, suite, tile_runs: dict, entries: dict) -> None:
 
 # ----------------------------------------------------------------- phase 4
 
+def moe_layers(cfg) -> int:
+    """MoE layers one pass of ``cfg``'s model runs through."""
+    return cfg.n_groups * cfg.pattern.count("moe")
+
+
+@contextlib.contextmanager
+def recorded_routes(cfg, runs: int = 1):
+    """Inside the block every ``moe_apply`` call also records
+    ``moe.route`` of its input (the helper it routes with): one Route per
+    MoE layer, in the order the layers run.  The block must run ``runs``
+    passes of ``cfg``'s model (a sequential prefill: one a token): fails
+    unless it recorded one route per MoE layer a pass, so a model that
+    stops calling ``moe_apply`` through the module fails here rather than
+    printing no routes.  Read untimed runs only."""
+    routes = []
+    real = moe_mod.moe_apply
+
+    def recording(p, x, cfg):
+        routes.append(moe_mod.route(p, x.reshape(-1, x.shape[-1]), cfg))
+        return real(p, x, cfg)
+    moe_mod.moe_apply = recording
+    try:
+        yield routes
+    finally:
+        moe_mod.moe_apply = real
+    if len(routes) != runs * moe_layers(cfg):
+        raise AssertionError(f"{cfg.name}: {len(routes)} routes recorded, "
+                             f"want {runs} x {moe_layers(cfg)} MoE layers")
+
+
+def dropped(routes) -> list:
+    """Assignments dropped (rank >= cap) in each MoE layer."""
+    return [int((~r.keep).sum()) for r in routes]
+
+
+def flipped(routes_a, routes_b) -> list:
+    """Per MoE layer of two runs on the same tokens: (assignments sent to
+    another expert, assignments kept in one run only)."""
+    return [(int((a.experts != b.experts).sum()),
+             int((a.keep != b.keep).sum()))
+            for a, b in zip(routes_a, routes_b)]
+
+
+def depth(cfg) -> str:
+    full = get_config(cfg.name)
+    cut = f"{cfg.n_layers} of {full.n_layers} layers"
+    return cut + (f", first_dense {cfg.first_dense} of {full.first_dense}"
+                  if full.first_dense else "")
+
+
+def moe_fields(cfg, tokens: int) -> dict:
+    if not cfg.n_experts:
+        return {}
+    return {"assignments_per_layer": tokens * cfg.top_k,
+            "cap": moe_mod.capacity(cfg, tokens)}
+
+
+def record_launches(entries: dict, path: str, launches: dict) -> None:
+    """Each kernel's count in one main path's counted run: kept by path,
+    and their sum as the entry's launches."""
+    for name, n in launches.items():
+        if n:
+            by_path = entries[name].setdefault("launches_by_path", {})
+            by_path[path] = n
+            entries[name]["launches"] = sum(by_path.values())
+
+
 def prefill_requests(arch: str, entries: dict) -> None:
     """The main path of ``arch``: fp32 kernel path against the plain path,
-    then the bf16 request counted and timed.  Records each kernel's launch
-    count of the counted run in its entry."""
-    cfg = get_config(arch).replace(use_flash_kernel=True)
+    then the bf16 request counted and timed, at PREFILL's length and depth
+    cuts.  Records each kernel's launch count of the counted run in its
+    entry; for the MoE models, prints the routes that differ between the
+    fp32 paths and the dropped assignments of the bf16 request."""
+    seq, served_cut, check_cut = PREFILL[arch]
+    cfg = get_config(arch).replace(use_flash_kernel=True, **served_cut)
     want = expected_launches(cfg)
-    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN),
+    tokens = torch.randint(0, cfg.vocab, (1, seq),
                            generator=generator(SEED + 1, "cuda"),
                            device="cuda")
 
-    # fp32: the kernel path against the plain path (danube: attn_chunk=1024
-    # -> _sdpa_chunked; mamba2: ssd_chunked), tight tolerance.
-    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    # fp32: the kernel path against the plain path (attn_chunk=1024 ->
+    # _sdpa_chunked; mamba2: ssd_chunked), tight tolerance.
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32", **check_cut)
     model = build(cfg32, "cuda").init(generator(SEED, "cuda"))
     prefill = make_prefill(model)
     reset_launches()
-    logits_k = prefill(tokens)
+    with recorded_routes(cfg32) as routes_k:
+        logits_k = prefill(tokens)
     torch.cuda.synchronize()
     launches32 = read_launches()
-    check_launches(f"{arch} fp32 prefill", launches32, want)
+    check_launches(f"{arch} fp32 prefill", launches32,
+                   expected_launches(cfg32))
     model.cfg = cfg32.replace(use_flash_kernel=False)
-    logits_p = prefill(tokens)
-    err32 = check_close(f"{arch} fp32 prefill logits, kernel vs plain",
-                        logits_k, logits_p, atol=FP32_REQUEST_TOL,
-                        rtol=FP32_REQUEST_TOL)
-    phase("prefill", arch=arch, dtype="float32", tokens=PREFILL_LEN,
-          launches=launches32, max_abs_err=f"{err32:.3e}",
-          tol=FP32_REQUEST_TOL,
-          logits_absmax=f"{logits_p.abs().max().item():.3f}")
-    del model, prefill, logits_k, logits_p
+    with recorded_routes(cfg32) as routes_p:
+        logits_p = prefill(tokens)
+    what = f"{arch} fp32 prefill logits, kernel vs plain"
+    err32 = max_abs_err(what, logits_k, logits_p)
+    routes = {}
+    if cfg.n_experts:
+        routes = {"route_flips_per_layer": flipped(routes_k, routes_p),
+                  "dropped_per_layer": dropped(routes_p)}
+    phase("prefill", arch=arch, dtype="float32", tokens=seq,
+          depth=repr(depth(cfg32)), launches=launches32,
+          max_abs_err=f"{err32:.3e}", tol=FP32_REQUEST_TOL,
+          logits_absmax=f"{logits_p.abs().max().item():.3f}",
+          **moe_fields(cfg32, seq), **routes)
+    check_close(what, logits_k, logits_p, atol=FP32_REQUEST_TOL,
+                rtol=FP32_REQUEST_TOL)
+    del model, prefill, logits_k, logits_p, routes_k, routes_p
     torch.cuda.empty_cache()
 
     # bf16: the served dtype.  The counted run is the main path's run.
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg, "cuda").init(generator(SEED, "cuda"))
     prefill = make_prefill(model)
-    prefill(tokens)                                   # warm-up
+    with recorded_routes(cfg) as routes:              # warm-up
+        prefill(tokens)
+    drops = {"dropped_per_layer": dropped(routes)} if cfg.n_experts else {}
+    del routes
     logits_k = None
 
     def request():
@@ -1385,9 +1548,7 @@ def prefill_requests(arch: str, entries: dict) -> None:
     first_ms = host_ms(request)
     launches = read_launches()
     check_launches(f"{arch} bf16 prefill", launches, want)
-    for name, n in want.items():
-        if n:
-            entries[name]["launches"] = launches[name]
+    record_launches(entries, arch, launches)
     kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
     model.cfg = cfg.replace(use_flash_kernel=False)
     logits_p = None
@@ -1403,21 +1564,56 @@ def prefill_requests(arch: str, entries: dict) -> None:
     else:
         tol16 = "not gated (see BF16_GATED)"
         err16 = max_abs_err(what, logits_k, logits_p)
-    phase("prefill", arch=arch, dtype="bfloat16", tokens=PREFILL_LEN,
-          launches=launches, request_ms=[round(t, 3) for t in kernel_req_ms],
+    phase("prefill", arch=arch, dtype="bfloat16", tokens=seq,
+          depth=repr(depth(cfg)), launches=launches,
+          request_ms=[round(t, 3) for t in kernel_req_ms],
           plain_request_ms=[round(t, 3) for t in plain_req_ms],
+          tok_per_s=f"{seq / kernel_req_ms[1] * 1e3:.1f}",
           max_abs_err=f"{err16:.3e}", tol=tol16,
-          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+          **moe_fields(cfg, seq), **drops)
     del model, prefill, logits_k, logits_p
     torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 5
 
+def prompt_route_flips(fast_routes, seq_routes, k: int) -> list:
+    """Per MoE layer, the prompt's (token, choice) assignments that the
+    forward over the whole prompt and the sequential prefill send to
+    different experts.  The forward records one route a layer over (B, S)
+    tokens; the sequential prefill one a layer a step, over B tokens."""
+    n = len(fast_routes)
+    flips = []
+    for layer, fast in enumerate(fast_routes):
+        steps = [r.experts.reshape(-1, k) for r in seq_routes[layer::n]]
+        seq = torch.stack(steps, dim=1)                 # (B, S, k)
+        flips.append(int((fast.experts.reshape(seq.shape) != seq).sum()))
+    return flips
+
+
+def cut_setup(arch: str):
+    """``launch.serve.setup`` (weights from SEED, a prompt from SEED + 1,
+    both made on the card) on the served config cut to PREFILL's depth: the
+    launcher takes the shipped configs only, as the reference's does."""
+    cfg = get_config(arch).replace(**PREFILL[arch][1])
+    model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+    prompt = torch.randint(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT),
+                           generator=generator(SEED + 1, "cuda"),
+                           device="cuda")
+    return model, prompt
+
+
 def generation_request(arch: str) -> None:
+    served_cut = PREFILL[arch][1]
     reset_launches()
-    out = serve(arch, smoke=False, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
-                max_new=GEN_NEW, seed=SEED, device="cuda")
+    if served_cut:
+        model, prompt = cut_setup(arch)
+        out = greedy_generate(model, prompt, max_new=GEN_NEW)
+    else:
+        out = serve(arch, smoke=False, batch=GEN_BATCH,
+                    prompt_len=GEN_PROMPT, max_new=GEN_NEW, seed=SEED,
+                    device="cuda")
     torch.cuda.synchronize()
     gen_launches = read_launches()     # greedy decoding reaches no kernel
     check_launches(f"{arch} generation", gen_launches,
@@ -1428,36 +1624,78 @@ def generation_request(arch: str) -> None:
     if not bool(((out >= 0) & (out < vocab)).all()):
         raise AssertionError("token ids out of range")
 
-    model, prompt = setup(arch, smoke=False, batch=GEN_BATCH,
-                          prompt_len=GEN_PROMPT, seed=SEED, device="cuda")
+    if not served_cut:
+        model, prompt = setup(arch, smoke=False, batch=GEN_BATCH,
+                              prompt_len=GEN_PROMPT, seed=SEED,
+                              device="cuda")
+    served = model.cfg
+    moe = {}
+    if served.n_experts:
+        tokens = GEN_BATCH * GEN_PROMPT
+        with recorded_routes(served) as routes:
+            make_prefill(model)(prompt)
+        moe = {"served_cap": moe_mod.capacity(served, tokens),
+               "served_dropped_per_layer": dropped(routes)}
+        del routes
     check_dtype = PROMPT_CHECK_DTYPE[arch]
-    if check_dtype == torch.float32:
-        checked = build(model.cfg.replace(dtype="float32",
-                                          param_dtype="float32"), "cuda")
+    if check_dtype == torch.float32 and served_cut:
+        del model
+        torch.cuda.empty_cache()
+        checked = build(served.replace(
+            dtype="float32", param_dtype="float32", **PREFILL[arch][2]),
+            "cuda").init(generator(SEED, "cuda"))
+        tol = {"atol": FP32_REQUEST_TOL, "rtol": FP32_REQUEST_TOL}
+    elif check_dtype == torch.float32:
+        checked = build(served.replace(dtype="float32",
+                                       param_dtype="float32"), "cuda")
         checked.load_state_dict(model.state_dict())
         tol = {"atol": FP32_REQUEST_TOL, "rtol": FP32_REQUEST_TOL}
     else:
         checked, tol = model, BF16_REQUEST_TOL
     cfg = checked.cfg
+    check_prompt = prompt
+    if cfg.n_experts:
+        check_prompt = prompt[:PROMPT_CHECK_ROWS[arch]]
+        tokens = check_prompt.numel()
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        if moe_mod.capacity(cfg, tokens) < tokens:
+            raise AssertionError("the raised capacity still drops")
+        moe.update(checked_depth=repr(depth(cfg)),
+                   checked_prompt=tuple(check_prompt.shape),
+                   checked_capacity_factor=cfg.capacity_factor,
+                   checked_cap=moe_mod.capacity(cfg, tokens))
     checked.cfg = cfg.replace(use_flash_kernel=True)
-    last_fast = make_prefill(checked)(prompt)
+    with recorded_routes(cfg) as fast_routes:
+        last_fast = make_prefill(checked)(check_prompt)
     checked.cfg = cfg
-    with torch.inference_mode():
+    with recorded_routes(cfg, runs=check_prompt.shape[1]) as seq_routes, \
+            torch.inference_mode():
         last_seq, _ = checked.prefill(
-            prompt, checked.init_cache(GEN_BATCH, GEN_PROMPT))
-    err = check_close(f"{arch} prompt logits, make_prefill vs sequential "
-                      f"prefill", last_fast, last_seq, **tol)
+            check_prompt, checked.init_cache(*check_prompt.shape))
+    if cfg.n_experts:
+        moe["route_flips_per_layer"] = prompt_route_flips(
+            fast_routes, seq_routes, cfg.top_k)
+    del fast_routes, seq_routes
+    what = f"{arch} prompt logits, make_prefill vs sequential prefill"
+    err = max_abs_err(what, last_fast, last_seq)
+    phase("generate", arch=arch, check=repr(what),
+          prompt_logits_dtype=str(check_dtype)[6:],
+          prompt_logits_err=f"{err:.3e}", tol=tol, **moe)
+    check_close(what, last_fast, last_seq, **tol)
     del checked, last_fast, last_seq
+    if served_cut and check_dtype == torch.float32:
+        torch.cuda.empty_cache()
+        model, prompt = cut_setup(arch)
+    else:
+        model.cfg = served
     toks = None
 
     def generate():
         nonlocal toks
         toks = greedy_generate(model, prompt, max_new=GEN_NEW)
     gen_ms = host_ms(generate)
-    phase("generate", arch=arch, batch=GEN_BATCH, prompt=GEN_PROMPT,
-          new=GEN_NEW, kernel_launches=gen_launches,
-          prompt_logits_dtype=str(check_dtype)[6:],
-          prompt_logits_err=f"{err:.3e}", tol=tol,
+    phase("generate", arch=arch, depth=repr(depth(served)), batch=GEN_BATCH,
+          prompt=GEN_PROMPT, new=GEN_NEW, kernel_launches=gen_launches,
           request_ms=f"{gen_ms:.1f}",
           tok_per_s=f"{GEN_BATCH * GEN_NEW / gen_ms * 1e3:.1f}",
           same_tokens_as_serve=bool(torch.equal(toks, out)))
@@ -1518,28 +1756,38 @@ def train_steps(tree, cfg, device, *, microbatches: int = 1) -> list:
     return out
 
 
+def card_vs_cpu(tree, cfg) -> list:
+    """CHECK_STEPS steps from the numpy params ``tree`` on the card against
+    the same on the CPU: loss, grad norm and every parameter after each
+    step at TRAIN_TOL.  Returns the card's steps."""
+    cpu = train_steps(tree, cfg, "cpu")
+    card = train_steps(tree, cfg, "cuda")
+    for i, ((l_c, g_c, p_c), (l_g, g_g, p_g)) in enumerate(zip(cpu, card)):
+        check_close(f"{cfg.name} card vs cpu loss", torch.tensor(l_g),
+                    torch.tensor(l_c), **TRAIN_TOL)
+        check_close(f"{cfg.name} card vs cpu grad norm", torch.tensor(g_g),
+                    torch.tensor(g_c), **TRAIN_TOL)
+        err = trees_close(f"{cfg.name} card vs cpu params", p_g, p_c,
+                          TRAIN_TOL)
+        phase("train", check="card_vs_cpu", config=cfg.name, step=i + 1,
+              loss=f"{l_g:.6f}/{l_c:.6f}", grad_norm=f"{g_g:.6f}/{g_c:.6f}",
+              params_max_abs_err=f"{err:.3e}", tol=TRAIN_TOL)
+    return card
+
+
 def train_checks() -> None:
     """(a) h2o-danube-1.8b at full width, CHECK_LAYERS layers, fp32: the
     card's steps against the CPU's from one numpy parameter tree, then
     microbatches 2 and remat block / full against the plain steps on the
-    card; and resume through ``launch.train.train`` (danube-smoke: the
-    launcher takes the shipped configs only)."""
+    card; the MoE smoke configs (qwen3moe-smoke, dsv3-smoke: the dispatch,
+    MLA, the dense prefix, the aux and MTP losses) card against CPU; and
+    resume through ``launch.train.train`` (danube-smoke: the launcher takes
+    the shipped configs only)."""
     t0 = time.perf_counter()
     cfg = get_config(DANUBE).replace(n_layers=CHECK_LAYERS, dtype="float32",
                                      param_dtype="float32", remat="none")
     tree = params_to_jax(build(cfg, "cpu").init(generator(SEED, "cpu")))
-    cpu = train_steps(tree, cfg, "cpu")
-    card = train_steps(tree, cfg, "cuda")
-    for i, ((l_c, g_c, p_c), (l_g, g_g, p_g)) in enumerate(zip(cpu, card)):
-        check_close("card vs cpu loss", torch.tensor(l_g), torch.tensor(l_c),
-                    **TRAIN_TOL)
-        check_close("card vs cpu grad norm", torch.tensor(g_g),
-                    torch.tensor(g_c), **TRAIN_TOL)
-        err = trees_close("card vs cpu params", p_g, p_c, TRAIN_TOL)
-        phase("train", check="card_vs_cpu", step=i + 1,
-              loss=f"{l_g:.6f}/{l_c:.6f}", grad_norm=f"{g_g:.6f}/{g_c:.6f}",
-              params_max_abs_err=f"{err:.3e}", tol=TRAIN_TOL)
-    del cpu
+    card = card_vs_cpu(tree, cfg)
     variants = {"microbatches=2": (cfg, 2),
                 "remat=block": (cfg.replace(remat="block"), 1),
                 "remat=full": (cfg.replace(remat="full"), 1)}
@@ -1556,6 +1804,10 @@ def train_checks() -> None:
               params_max_abs_err=f"{max(errs):.3e}", tol=TRAIN_TOL)
         del other
     del card, tree
+    for arch in (QWEN3, DSV3):
+        smoke = get_config(arch, smoke=True)
+        card_vs_cpu(params_to_jax(build(smoke, "cpu").init(
+            generator(SEED, "cpu"))), smoke)
     torch.cuda.empty_cache()
 
     ckpt_dir = ROOT / "build" / "train_resume"
@@ -1655,7 +1907,7 @@ def main() -> int:
     predict_serve(measured_hw, suite, tile_runs, entries)
     del tile_runs
     torch.cuda.empty_cache()
-    for arch in (DANUBE, MAMBA2):
+    for arch in (DANUBE, MAMBA2, QWEN3, DSV3):
         prefill_requests(arch, entries)
         generation_request(arch)
     torch.cuda.empty_cache()

@@ -4,8 +4,11 @@ same function and a checkpoint written by either restores in the other.
 
 The reference (``repro/models/model.py:33-72``) keeps each block parameter
 STACKED over groups under ``params["groups"]["b<i>"]``, leading dim
-n_groups; the port keeps one module per group (``groups.<g>.b<i>``).  Leaf
-names are the same on both sides, so the mapping is by path.  A train state
+n_groups, and each dense prefix block parameter stacked over the
+``first_dense`` blocks under ``params["prefix"]``; the port keeps one module
+per group (``groups.<g>.b<i>``) and per prefix block (``prefix.<i>``).  The
+MTP head (``mtp``) is not stacked.  Leaf names are the same on both sides,
+so the mapping is by path.  A train state
 (``train.train_step.init_state``) holds named tensors in the port's names:
 ``params``, the optimizer's ``mu`` / ``nu`` and, with compressed gradients,
 ``residuals``; each maps the same way, and the optimizer's ``step`` as it
@@ -22,6 +25,27 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike
 from .model import LanguageModel
+
+
+STACKED = ("groups", "prefix")
+
+
+def split_stacked(name: str) -> Optional[Tuple[str, int]]:
+    """A port parameter name in a stacked part -> (the reference's leaf
+    path, the index along its leading dim): ``groups.3.b0.attn.wq`` ->
+    (``groups.b0.attn.wq``, 3).  None for a name outside them."""
+    head, _, rest = name.partition(".")
+    if head not in STACKED:
+        return None
+    i, rest = rest.split(".", 1)
+    return f"{head}.{rest}", int(i)
+
+
+def _unstacked_names(path: str, n: int) -> Iterator[str]:
+    """The reference's stacked leaf path -> the port's names of its ``n``
+    slices."""
+    head, rest = path.split(".", 1)
+    return (f"{head}.{i}.{rest}" for i in range(n))
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
@@ -63,17 +87,20 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                            f"the port model")
         state[path] = _tensor(a, model.device, want[path].dtype)
 
+    depth = {"groups": ("n_groups", cfg.n_groups),
+             "prefix": ("first_dense", cfg.first_dense)}
     for path, a in _leaves(tree):
-        if not path.startswith("groups."):
+        head = path.split(".", 1)[0]
+        if head not in STACKED:
             put(path, a)
             continue
         a = np.asarray(a)
-        if a.shape[0] != cfg.n_groups:
+        field, n = depth[head]
+        if a.shape[0] != n:
             raise ValueError(f"{path}: leading dim {a.shape[0]} is not "
-                             f"n_groups={cfg.n_groups}")
-        rest = path[len("groups."):]
-        for g in range(cfg.n_groups):
-            put(f"groups.{g}.{rest}", a[g])
+                             f"{field}={n}")
+        for i, name in enumerate(_unstacked_names(path, n)):
+            put(name, a[i])
     model.load_state_dict(state, strict=True)
     return model
 
@@ -94,19 +121,20 @@ def jax_layout(named: Mapping[str, torch.Tensor]) -> Dict:
     """Tensors named as the port's parameters (``groups.<g>.b0.attn.wq``, a
     model's ``named_parameters`` or state dict, its gradients or moments) ->
     the reference's nested layout, group leaves stacked over the groups
-    (``{"groups": {"b0": {"attn": {"wq": (n_groups, ...)}}}}``).  Leaves are
-    CPU copies, detached, in their own dtype."""
+    (``{"groups": {"b0": {"attn": {"wq": (n_groups, ...)}}}}``) and prefix
+    leaves over the prefix blocks.  Leaves are CPU copies, detached, in
+    their own dtype."""
     flat: Dict[str, torch.Tensor] = {}
     stacks = defaultdict(dict)
     for path, t in named.items():
-        if path.startswith("groups."):
-            g, rest = path[len("groups."):].split(".", 1)
-            stacks[f"groups.{rest}"][int(g)] = t.detach()
+        stacked = split_stacked(path)
+        if stacked:
+            stacks[stacked[0]][stacked[1]] = t.detach()
         else:
             flat[path] = t.detach().to("cpu", copy=True)
     for path, per_group in stacks.items():
         if sorted(per_group) != list(range(len(per_group))):
-            raise ValueError(f"{path}: groups {sorted(per_group)} are not "
+            raise ValueError(f"{path}: indices {sorted(per_group)} are not "
                              f"0..n-1")
         flat[path] = torch.stack([per_group[g] for g in
                                   range(len(per_group))]).cpu()
@@ -155,10 +183,9 @@ def _unstack(tree: Mapping) -> Dict[str, object]:
     """The reference's nested layout -> leaves named as the port's."""
     flat: Dict[str, object] = {}
     for path, a in _leaves(tree):
-        if path.startswith("groups."):
-            rest = path[len("groups."):]
-            for g in range(a.shape[0]):
-                flat[f"groups.{g}.{rest}"] = a[g]
+        if path.split(".", 1)[0] in STACKED:
+            for i, name in enumerate(_unstacked_names(path, a.shape[0])):
+                flat[name] = a[i]
         else:
             flat[path] = a
     return flat

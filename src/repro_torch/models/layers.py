@@ -81,14 +81,16 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """Parameters ``wg``, ``wu`` (d_model, d_ff) and ``wd`` (d_ff,
-    d_model), as in the reference's ``mlp_init``."""
+    """Parameters ``wg``, ``wu`` (d_model, width) and ``wd`` (width,
+    d_model), as in the reference's ``mlp_init``; width defaults to d_ff
+    (MoE's shared experts give their own)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, width: int = 0):
         super().__init__()
-        self.wg = empty_param((cfg.d_model, cfg.d_ff), cfg, device)
-        self.wu = empty_param((cfg.d_model, cfg.d_ff), cfg, device)
-        self.wd = empty_param((cfg.d_ff, cfg.d_model), cfg, device)
+        width = width or cfg.d_ff
+        self.wg = empty_param((cfg.d_model, width), cfg, device)
+        self.wu = empty_param((cfg.d_model, width), cfg, device)
+        self.wd = empty_param((width, cfg.d_model), cfg, device)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator, cfg: ModelConfig):

@@ -1,7 +1,9 @@
 """Language model: a stack of block groups following ``cfg.pattern``, with
 forward logits, the training loss, prefill and one-token decode.
-Counterpart of ``repro/models/model.py`` for the dense and SSM (mamba2)
-families.
+Counterpart of ``repro/models/model.py`` for the dense, SSM (mamba2) and
+MoE / MLA families: the dense ``prefix`` blocks before the MoE groups
+(``first_dense``) and DeepSeek-V3's multi-token-prediction head (``mtp``)
+are ported with them.
 
 The reference stores each parameter STACKED over groups and runs them with
 ``lax.scan``; here each group is its own module and a Python loop runs them
@@ -14,10 +16,10 @@ and recomputes attention's batched products and the elementwise work.
 
 Parameters are made with ``requires_grad=False``; ``train.train_step
 .init_state`` turns gradients on, and serving runs under
-``torch.inference_mode()``.  The reference's ``prefix`` (dense-first MoE),
-``encoder`` and ``mtp`` parts raise until their families are ported
-(ROADMAP.md, Queue A); until then the ``memory_embeds`` argument those
-families feed is left out of the signatures.
+``torch.inference_mode()``.  The reference's ``encoder`` raises until its
+family is ported (ROADMAP.md, Queue A); until then the ``memory_embeds``
+argument the encoder and modality families feed is left out of the
+signatures.
 """
 from __future__ import annotations
 
@@ -30,21 +32,47 @@ from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from .blocks import make_block
+from .blocks import AttnBlock, make_block
 from .layers import dtype_of, embed_init, empty_param, pdtype_of, rmsnorm
+
+
+def dense_config(cfg: ModelConfig) -> ModelConfig:
+    """The config of the ``attn`` blocks a MoE model keeps beside its
+    groups: the dense prefix and the MTP block."""
+    return cfg.replace(pattern=("attn",))
+
+
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token-prediction head: ``proj`` (2d, d) over the
+    normed (hidden, next-token embedding) pair, one ``attn`` ``block``, and
+    the norms ``norm_h``, ``norm_e``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = empty_param((2 * d, d), cfg, device)
+        self.block = AttnBlock(dense_config(cfg), device)
+        self.norm_h = empty_param((d,), cfg, device)
+        self.norm_e = empty_param((d,), cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        d2 = 2 * cfg.d_model
+        self.proj.copy_((torch.randn((d2, cfg.d_model), generator=generator,
+                                     device=generator.device)
+                         * d2 ** -0.5).to(pdtype_of(cfg)))
+        self.block.init(generator, dense_config(cfg))
+        self.norm_h.fill_(1.0)
+        self.norm_e.fill_(1.0)
 
 
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        for field, value, item in (
-                ("first_dense", cfg.first_dense, "MoE / MLA families"),
-                ("enc_layers", cfg.enc_layers, "encoder / cross-attention"),
-                ("mtp_depth", cfg.mtp_depth, "MoE / MLA families")):
-            if value > 0:
-                raise NotImplementedError(
-                    f"{cfg.name}: {field}={value} is not ported yet "
-                    f"(ROADMAP.md Queue A: {item})")
+        if cfg.enc_layers > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: enc_layers={cfg.enc_layers} is not ported yet "
+                f"(ROADMAP.md Queue A: encoder / cross-attention)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.tok_embed = empty_param((cfg.vocab, cfg.d_model), cfg, dev)
@@ -53,8 +81,12 @@ class LanguageModel(nn.Module):
             nn.ModuleDict({f"b{i}": make_block(kind, cfg, dev)
                            for i, kind in enumerate(cfg.pattern)})
             for _ in range(cfg.n_groups))
+        self.prefix = nn.ModuleList(AttnBlock(dense_config(cfg), dev)
+                                    for _ in range(cfg.first_dense))
         if not cfg.tie_embeddings:
             self.lm_head = empty_param((cfg.d_model, cfg.vocab), cfg, dev)
+        if cfg.mtp_depth > 0:
+            self.mtp = MTP(cfg, dev)
 
     @property
     def device(self) -> torch.device:
@@ -77,6 +109,10 @@ class LanguageModel(nn.Module):
             self.lm_head.copy_((torch.randn(
                 (cfg.d_model, cfg.vocab), generator=generator,
                 device=generator.device) * 0.02).to(pd))
+        for block in self.prefix:
+            block.init(generator, dense_config(cfg))
+        if cfg.mtp_depth > 0:
+            self.mtp.init(generator, cfg)
         return self
 
     # -------------------------------------------------------------- forward
@@ -90,54 +126,102 @@ class LanguageModel(nn.Module):
         return (x @ head.to(dtype_of(cfg))) * cfg.logit_scale
 
     def _group_apply(self, group: nn.ModuleDict, x):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in group.values():
-            x = block(x, self.cfg)
-        return x
+            x, a = block(x, self.cfg)
+            aux = aux + a
+        return x, aux
 
     def _run_groups(self, x):
+        """-> (x, the summed aux loss of every block)."""
         remat = self.cfg.remat
         if remat not in ("none", *_REMAT_CONTEXTS):
             raise ValueError(f"remat={remat!r}: one of none, block, full")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in self.groups:
             if remat == "none" or not torch.is_grad_enabled():
-                x = self._group_apply(group, x)
+                x, a = self._group_apply(group, x)
             else:
-                x = ckpt.checkpoint(self._group_apply, group, x,
-                                    use_reentrant=False,
-                                    context_fn=_REMAT_CONTEXTS[remat])
+                x, a = ckpt.checkpoint(self._group_apply, group, x,
+                                       use_reentrant=False,
+                                       context_fn=_REMAT_CONTEXTS[remat])
+            aux = aux + a
+        return x, aux
+
+    def _run_prefix(self, x):
+        """The dense prefix blocks, without remat, as in the reference."""
+        dense_cfg = dense_config(self.cfg)
+        for block in self.prefix:
+            x, _ = block(x, dense_cfg)
         return x
+
+    def _trunk(self, tokens):
+        """Hidden states before the final norm, and the aux loss."""
+        return self._run_groups(self._run_prefix(self._embed(tokens)))
 
     def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B, S, V), aux_loss scalar)."""
-        cfg = self.cfg
-        x = self._run_groups(self._embed(tokens))
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return self._logits(x), torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+        x, aux = self._trunk(tokens)
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x), aux
 
     # ----------------------------------------------------------------- loss
     def loss_fn(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         """batch: tokens (B,S), labels (B,S) (-100 = ignore) -> (loss,
-        {"xent", "aux"}): the mean token cross entropy over valid labels
-        (label >= 0), in fp32, plus the blocks' aux loss."""
-        logits, aux = self.forward(batch["tokens"])
+        metrics): the mean token cross entropy over valid labels (label >=
+        0), in fp32, plus the blocks' aux loss and, with an MTP head, 0.3 x
+        its loss (metrics "xent", "aux" and "mtp")."""
+        cfg = self.cfg
+        trunk = None
+        if cfg.mtp_depth > 0 and cfg.mtp_share_trunk:
+            # compute the trunk once; the head and MTP both read it
+            trunk, aux = self._trunk(batch["tokens"])
+            logits = self._logits(rmsnorm(trunk, self.final_norm,
+                                          cfg.norm_eps))
+        else:
+            logits, aux = self.forward(batch["tokens"])
         labels = batch["labels"]
-        valid = labels >= 0
-        safe = torch.where(valid, labels, 0).long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-        denom = torch.clamp(valid.sum(), min=1)
-        xent = torch.where(valid, nll, 0.0).sum() / denom
-        return xent + aux, {"xent": xent, "aux": aux}
+        xent = _masked_xent(logits, labels, labels >= 0)
+        metrics = {"xent": xent, "aux": aux}
+        loss = xent + aux
+        if cfg.mtp_depth > 0:
+            loss = loss + 0.3 * self._mtp_loss(batch, metrics, trunk=trunk)
+        return loss, metrics
+
+    def _mtp_loss(self, batch: Dict, metrics: Dict, trunk=None):
+        """DeepSeek-V3 multi-token prediction: predict t+2 from a fused
+        (h_t, emb_{t+1}) stream through one extra block."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self._trunk(tokens)[0] if trunk is None else trunk
+        h = rmsnorm(x, self.mtp.norm_h, cfg.norm_eps)
+        e_next = rmsnorm(self._embed(torch.roll(tokens, -1, dims=1)),
+                         self.mtp.norm_e, cfg.norm_eps)
+        fused = torch.cat([h, e_next], dim=-1) @ self.mtp.proj.to(
+            dtype_of(cfg))
+        fused, _ = self.mtp.block(fused, dense_config(cfg))
+        mtp_labels = torch.roll(labels, -1, dims=1)
+        valid = mtp_labels >= 0
+        valid[:, -2:] = False
+        mtp = _masked_xent(self._logits(fused), mtp_labels, valid)
+        metrics["mtp"] = mtp
+        return mtp
 
     # --------------------------------------------------------------- decode
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """{"groups": [per group {"b<i>": block cache}]} on the model's
-        device."""
-        return {"groups": [
+        device, and "prefix": [per dense prefix block cache] when the model
+        has one."""
+        cache = {"groups": [
             {name: block.init_cache(self.cfg, batch, max_len, self.device)
              for name, block in group.items()}
             for group in self.groups]}
+        if self.cfg.first_dense > 0:
+            dense_cfg = dense_config(self.cfg)
+            cache["prefix"] = [block.init_cache(dense_cfg, batch, max_len,
+                                                self.device)
+                               for block in self.prefix]
+        return cache
 
     def decode_step(self, cache: Dict, tokens, pos: int
                     ) -> Tuple[torch.Tensor, Dict]:
@@ -145,6 +229,10 @@ class LanguageModel(nn.Module):
         updated IN PLACE (the reference returns a new one)."""
         cfg = self.cfg
         x = self._embed(tokens)
+        dense_cfg = dense_config(cfg)
+        for i, block in enumerate(self.prefix):
+            x, cache["prefix"][i] = block.decode(x, cache["prefix"][i], pos,
+                                                 dense_cfg)
         for group, gcache in zip(self.groups, cache["groups"]):
             for name, block in group.items():
                 x, gcache[name] = block.decode(x, gcache[name], pos, cfg)
@@ -163,6 +251,16 @@ class LanguageModel(nn.Module):
     # ----------------------------------------------------------- analytics
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+def _masked_xent(logits, labels, valid):
+    """Mean token cross entropy in fp32 over the ``valid`` positions (0 when
+    none is)."""
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, 0.0).sum() / denom
 
 
 def _keep_weight_products(ctx, op, *args, **kwargs):

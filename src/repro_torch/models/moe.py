@@ -1,0 +1,186 @@
+"""Mixture-of-Experts FFN with capacity-based scatter dispatch.
+
+Counterpart of ``repro/models/moe.py``.  Dispatch avoids the (T, E, C)
+one-hot tensors of GShard-style einsum MoE:
+  1. router top-k per token (fp32),
+  2. rank within each expert by a stable sort of the expert ids,
+  3. capacity-clipped scatter into an (E, C, D) buffer,
+  4. batched per-expert SwiGLU products,
+  5. gather-back weighted by normalized gates, summed over each token's k
+     assignments (dropped ones contribute 0 and fall through on the
+     residual path).
+
+Aux load-balancing loss per Switch/GShard: E * sum_e f_e * p_e.
+
+The reference's shard_map expert-parallel path (``moe_apply_sharded``)
+needs a mesh with a "model" axis; on one device its ``moe_apply`` takes the
+path ported here (ROADMAP.md Queue A item 10 holds the other).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..configs.base import ModelConfig
+from .layers import MLP, dense_init, dtype_of, empty_param, mlp_apply, \
+    pdtype_of
+
+
+class MoE(nn.Module):
+    """Parameters ``w_router`` (d, E), fp32 whatever the param dtype, as in
+    the reference; ``we_g``, ``we_u`` (E, d, F) and ``we_d`` (E, F, d); and,
+    with shared experts, ``shared`` (an MLP of width F * n_shared)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.expert_ff
+        self.w_router = empty_param((d, e), cfg, device, dtype=torch.float32)
+        self.we_g = empty_param((e, d, f), cfg, device)
+        self.we_u = empty_param((e, d, f), cfg, device)
+        self.we_d = empty_param((e, f, d), cfg, device)
+        self.has_shared = cfg.n_shared_experts > 0
+        if self.has_shared:
+            self.shared = MLP(cfg, device, width=f * cfg.n_shared_experts)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        """The reference's distributions (``moe_init``).  The experts are
+        drawn one at a time: at full width one whole (E, d, F) draw in fp32
+        would be a temporary of many GB before the cast."""
+        pd = pdtype_of(cfg)
+        d = cfg.d_model
+        std = d ** -0.5
+        self.w_router.copy_(dense_init(generator, d, cfg.n_experts,
+                                       torch.float32))
+        for w, scale in ((self.we_g, std), (self.we_u, std),
+                         (self.we_d, std * cfg.residual_scale)):
+            for i in range(w.shape[0]):
+                w[i].copy_((torch.randn(w.shape[1:], generator=generator,
+                                        device=generator.device)
+                            * scale).to(pd))
+        if self.has_shared:
+            self.shared.init(generator, cfg)
+
+
+class Route(NamedTuple):
+    """Where each of the T*k (token, choice) assignments goes, flattened
+    token-major: ``gates`` (T*k,) fp32, normalized over each token's k;
+    ``experts`` (T*k,); ``rank`` (T*k,), the assignment's place in its
+    expert's queue; ``keep`` (T*k,), rank < cap; ``probs`` (T, E) fp32;
+    ``cap``, the slots per expert."""
+    gates: torch.Tensor
+    experts: torch.Tensor
+    rank: torch.Tensor
+    keep: torch.Tensor
+    probs: torch.Tensor
+    cap: int
+
+
+def capacity(cfg: ModelConfig, t: int) -> int:
+    """Slots per expert for ``t`` tokens: capacity bounds memory at scale,
+    and for small token counts (decode steps, smoke tests) drops would be an
+    artifact, so it is floored at 8 slots (or the no-drop bound t*k when
+    even smaller)."""
+    k = cfg.top_k
+    return min(t * k, max(int(cfg.capacity_factor * t * k / cfg.n_experts),
+                          8))
+
+
+def top_k(probs, k: int):
+    """``jax.lax.top_k``: the k largest along the last dim, ties broken
+    towards the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def route(p: MoE, xt, cfg: ModelConfig) -> Route:
+    """Router, top-k and each assignment's rank within its expert, for
+    tokens ``xt`` (T, d)."""
+    t = xt.shape[0]
+    k = cfg.top_k
+    logits = xt.float() @ p.w_router                           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = top_k(probs, k)                    # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    flat_e = expert_ids.reshape(-1)                            # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(cfg.n_experts, device=xt.device))
+    rank_sorted = torch.arange(t * k, device=xt.device) \
+        - group_start[sorted_e]
+    rank = torch.empty_like(flat_e)
+    rank[order] = rank_sorted
+    cap = capacity(cfg, t)
+    return Route(gate_vals.reshape(-1), flat_e, rank, rank < cap, probs, cap)
+
+
+def aux_loss(r: Route, cfg: ModelConfig):
+    """The load-balancing loss: fraction routed against mean probability,
+    per expert."""
+    e = cfg.n_experts
+    t = r.probs.shape[0]
+    f_e = torch.bincount(r.experts, minlength=e).float() / t   # (E,)
+    p_e = r.probs.mean(dim=0)
+    return cfg.router_aux_coef * e * torch.sum(f_e * p_e)
+
+
+def moe_apply(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """x: (B, S, D) -> (out, aux_loss); the reference's one-device path
+    (``_moe_apply_gspmd``)."""
+    dt = dtype_of(cfg)
+    b, s, d = x.shape
+    t = b * s
+    k = cfg.top_k
+    xt = x.reshape(t, d)
+    r = route(p, xt, cfg)
+    aux = aux_loss(r, cfg)
+
+    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    # The reference scatters with mode="drop"; index_put would raise on a
+    # rank past the buffer, so only the kept assignments are scattered.
+    kept = torch.nonzero(r.keep).squeeze(1)
+    ebuf = torch.zeros((cfg.n_experts, r.cap, d), dtype=dt,
+                       device=x.device).index_put(
+        (r.experts[kept], r.rank[kept]), xt[flat_tok[kept]].to(dt))
+
+    h = F.silu(torch.bmm(ebuf, p.we_g.to(dt))) * torch.bmm(ebuf,
+                                                           p.we_u.to(dt))
+    y = torch.bmm(h, p.we_d.to(dt))                            # (E, C, D)
+
+    gathered = y[r.experts, torch.clamp(r.rank, max=r.cap - 1)]
+    contrib = torch.where(r.keep[:, None],
+                          gathered * r.gates[:, None].to(dt), 0.0)
+    # The reference scatter-adds each assignment into its token's row.  A
+    # token's k assignments are consecutive (token-major), so that is a sum
+    # over each group of k rows; summed so, the result does not depend on
+    # the order of a bf16 index_add_'s atomic adds on the card.
+    out = contrib.reshape(t, k, d).sum(dim=1)
+    if p.has_shared:
+        out = out + mlp_apply(p.shared, xt, cfg)
+    return out.reshape(b, s, d), aux
+
+
+def moe_apply_reference(p: MoE, x, cfg: ModelConfig):
+    """Dense loop-over-experts oracle (no capacity drops), for tests."""
+    dt = dtype_of(cfg)
+    b, s, d = x.shape
+    xt = x.reshape(-1, d)
+    probs = torch.softmax(xt.float() @ p.w_router, dim=-1)
+    gate_vals, expert_ids = top_k(probs, cfg.top_k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    out = torch.zeros_like(xt)
+    for ei in range(cfg.n_experts):
+        h = F.silu(xt @ p.we_g[ei].to(dt)) * (xt @ p.we_u[ei].to(dt))
+        ye = h @ p.we_d[ei].to(dt)
+        w = torch.where(expert_ids == ei, gate_vals, 0.0).sum(dim=-1)
+        out = out + ye * w[:, None].to(dt)
+    if p.has_shared:
+        out = out + mlp_apply(p.shared, xt, cfg)
+    return out.reshape(b, s, d)

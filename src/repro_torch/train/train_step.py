@@ -17,6 +17,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 
 from ..models import LanguageModel
+from ..models.convert import split_stacked
 from ..optim import adamw_update, error_feedback_update
 from ..optim.adamw import adamw_init
 from ..optim.grad_compression import init_residuals
@@ -36,15 +37,13 @@ def _compress(grads: Mapping[str, torch.Tensor],
               residuals: Mapping[str, torch.Tensor]):
     """``error_feedback_update`` over the reference's leaves: it quantizes
     each leaf of its params pytree with one scale, and a block leaf there is
-    stacked over the groups, so the group copies of a block parameter
-    (``groups.<g>.b0.attn.wq`` for every g) share one scale here too."""
+    stacked over the groups (or the dense prefix blocks), so the group
+    copies of a block parameter (``groups.<g>.b0.attn.wq`` for every g)
+    share one scale here too."""
     leaves = defaultdict(list)
     for name in grads:
-        if name.startswith("groups."):
-            g, rest = name[len("groups."):].split(".", 1)
-            leaves[f"groups.{rest}"].append((int(g), name))
-        else:
-            leaves[name].append((0, name))
+        leaf, i = split_stacked(name) or (name, 0)
+        leaves[leaf].append((i, name))
     deq, res = error_feedback_update(
         {k: torch.stack([grads[n] for _, n in sorted(v)])
          for k, v in leaves.items()},

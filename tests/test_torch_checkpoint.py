@@ -139,6 +139,7 @@ def test_files_cross_between_packages(tmp_path):
 
 # resume: N steps of training, a checkpoint at FIRST, the rest resumed
 ARCH = "minicpm-2b"          # tied embeddings, WSD schedule
+MOE_ARCH = "deepseek-v3-671b"
 TRAIN = dict(smoke=True, steps=6, batch=4, seq=32, lr=1e-3, log_every=0,
              ckpt_every=3)
 FIRST = 3
@@ -173,12 +174,22 @@ def test_reference_checkpoint_resumed_by_the_port(tmp_path):
     """The reference trains to FIRST and checkpoints; the port resumes
     from it and trains on, as does the reference: the same losses, the
     same params at the reference's resume tolerance."""
+    _reference_to_port(tmp_path, ARCH)
+
+
+def test_reference_moe_checkpoint_resumed_by_the_port(tmp_path):
+    """The same for dsv3-smoke: the MoE leaves (the fp32 router), MLA's,
+    the dense prefix stacked over first_dense, the unstacked MTP head."""
+    _reference_to_port(tmp_path, MOE_ARCH)
+
+
+def _reference_to_port(tmp_path, arch):
     d = tmp_path / "ref"
-    ref_train.train(ARCH, ckpt_dir=str(d), **dict(TRAIN, steps=FIRST))
+    ref_train.train(arch, ckpt_dir=str(d), **dict(TRAIN, steps=FIRST))
     _keep_first(d)
     shutil.copytree(d, tmp_path / "port")
-    want = ref_train.train(ARCH, ckpt_dir=str(d), **TRAIN)
-    got = port_train.train(ARCH, ckpt_dir=str(tmp_path / "port"),
+    want = ref_train.train(arch, ckpt_dir=str(d), **TRAIN)
+    got = port_train.train(arch, ckpt_dir=str(tmp_path / "port"),
                            device="cpu", **TRAIN)
     assert len(got["losses"]) == TRAIN["steps"] - FIRST
     np.testing.assert_allclose(got["losses"], want["losses"], **STEP_TOL)
@@ -190,13 +201,21 @@ def test_reference_checkpoint_resumed_by_the_port(tmp_path):
 def test_port_checkpoint_resumed_by_the_reference(tmp_path):
     """The port trains to FIRST (its own init) and checkpoints; the
     reference resumes from it and reaches the port's params."""
+    _port_to_reference(tmp_path, ARCH)
+
+
+def test_port_moe_checkpoint_resumed_by_the_reference(tmp_path):
+    _port_to_reference(tmp_path, MOE_ARCH)
+
+
+def _port_to_reference(tmp_path, arch):
     d = tmp_path / "port"
-    port_train.train(ARCH, ckpt_dir=str(d), device="cpu",
+    port_train.train(arch, ckpt_dir=str(d), device="cpu",
                      **dict(TRAIN, steps=FIRST))
     _keep_first(d)
     shutil.copytree(d, tmp_path / "ref")
-    got = port_train.train(ARCH, ckpt_dir=str(d), device="cpu", **TRAIN)
-    want = ref_train.train(ARCH, ckpt_dir=str(tmp_path / "ref"), **TRAIN)
+    got = port_train.train(arch, ckpt_dir=str(d), device="cpu", **TRAIN)
+    want = ref_train.train(arch, ckpt_dir=str(tmp_path / "ref"), **TRAIN)
     np.testing.assert_allclose(got["losses"], want["losses"], **STEP_TOL)
     _assert_params_close(_port_params(got["state"]),
                          _ref_params(want["state"]), RESUME_TOL)

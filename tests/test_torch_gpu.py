@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version (the matmul also bit for bit across its tiles), danube-smoke's and
-mamba2-smoke's prefill on the card against the same model on the CPU, and
-the paper's loop (calibrate_device and the quick validation suite) on the
-card.  Every test here is marked ``gpu`` and skips
-without a card; on a card machine run them with
+version (the matmul also bit for bit across its tiles), danube-smoke's,
+mamba2-smoke's, qwen3moe-smoke's and dsv3-smoke's forward on the card
+against the same model on the CPU, and the paper's loop (calibrate_device
+and the quick validation suite) on the card.  Every test here is marked
+``gpu`` and skips without a card; on a card machine run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -170,6 +170,29 @@ def test_smoke_forward_on_card_matches_cpu(cuda_device):
     assert kernel.launches == cfg.n_layers
     want = serve_step.make_prefill(on_cpu)(tokens)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_moe_smoke_forward_on_card_matches_cpu(cuda_device, arch):
+    """qwen3moe-smoke (GQA + MoE: a flash launch per layer) and dsv3-smoke
+    (MLA, which launches none, + the MHA dense prefix: one): logits and the
+    aux loss on the card against the CPU."""
+    cfg = get_config(arch, smoke=True).replace(use_flash_kernel=True)
+    on_cpu = build(cfg, "cpu").init(generator(0, "cpu"))
+    on_card = build(cfg, cuda_device)
+    on_card.load_state_dict(on_cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=generator(1, "cpu"))
+    kernel.launches = 0
+    with torch.inference_mode():
+        got, got_aux = on_card.forward(tokens.to(cuda_device))
+        torch.cuda.synchronize()
+        assert kernel.launches == (cfg.first_dense if cfg.use_mla
+                                   else cfg.n_layers)
+        want, want_aux = on_cpu.forward(tokens)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-6,
+                               rtol=1e-5)
 
 
 # The SSD kernel against the plain chunked version at the same chunk: the

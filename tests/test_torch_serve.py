@@ -178,8 +178,7 @@ def test_init_follows_reference_distributions():
 
 @pytest.mark.parametrize("arch,kind", [
     ("llama-3.2-vision-90b", "cross_attn"), ("recurrentgemma-9b", "rglru"),
-    ("qwen3-moe-235b-a22b", "moe"), ("whisper-tiny", "enc_layers"),
-    ("deepseek-v3-671b", "first_dense"),
+    ("whisper-tiny", "enc_layers"),
 ])
 def test_unported_families_raise_naming_the_roadmap(arch, kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

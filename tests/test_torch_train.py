@@ -4,8 +4,10 @@ against the JAX reference on the CPU: the same numpy parameters (carried
 across by ``params_from_jax``), the same ``SyntheticLMData`` batches.
 
 danube-smoke (SWA, GQA), minicpm-smoke (tied embeddings, logit scale,
-residual scale, the WSD schedule) and mamba2-smoke (the SSD scan's plain
-chunked path) cover the three ported block kinds.  Tolerances: the loss and
+residual scale, the WSD schedule), mamba2-smoke (the SSD scan's plain
+chunked path), qwen3moe-smoke (the MoE dispatch and its aux loss) and
+dsv3-smoke (MLA, a shared expert, the dense prefix, the MTP loss) cover the
+four ported block kinds.  Tolerances: the loss and
 its gradients at 1e-5; whole train steps at the reference's own
 ``test_grad_accum_matches_full_batch`` tolerance, atol 2e-5 / rtol 2e-4
 (``tests/test_substrate.py``).
@@ -42,7 +44,8 @@ from repro_torch.optim import schedule  # noqa: E402
 from repro_torch.train import train_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "mamba2-1.3b"]
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "deepseek-v3-671b"]
+ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "mamba2-1.3b"] + MOE_ARCHS
 GRAD_TOL = {"atol": 1e-5, "rtol": 1e-5}
 STEP_TOL = {"atol": 2e-5, "rtol": 2e-4}     # tests/test_substrate.py:213-215
 BATCH, SEQ, STEPS = 4, 32, 5
@@ -108,14 +111,19 @@ def test_loss_and_grads_match_reference(arch_params, masked):
     loss = loss.detach()
     assert loss.dtype == torch.float32 and loss.dim() == 0
     np.testing.assert_allclose(float(loss), float(want), **GRAD_TOL)
-    np.testing.assert_allclose(float(metrics["xent"].detach()),
-                               float(want_m["xent"]),
-                               **GRAD_TOL)
-    assert float(metrics["aux"]) == float(want_m["aux"]) == 0.0
+    assert metrics.keys() == want_m.keys()      # xent, aux and, with MTP, mtp
+    for key, want_v in want_m.items():
+        np.testing.assert_allclose(float(metrics[key].detach()),
+                                   float(want_v), err_msg=key, **GRAD_TOL)
+    if arch not in MOE_ARCHS:
+        assert float(metrics["aux"]) == float(want_m["aux"]) == 0.0
     _close(_grads(model), want_g, GRAD_TOL)
     if masked == "all":
-        assert float(loss) == 0.0
-        assert all(not p.grad.any() for p in model.parameters())
+        # no label left: the loss is the aux loss alone (0 but for MoE)
+        assert float(metrics["xent"].detach()) == 0.0
+        assert float(loss) == float(metrics["aux"].detach())
+        if arch not in MOE_ARCHS:
+            assert all(not p.grad.any() for p in model.parameters())
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
