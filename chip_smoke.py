@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
-plain versions, serves h2o-danube-1.8b, mamba2-1.3b, qwen3-moe-235b-a22b and
-deepseek-v3-671b at full width (the MoE models with their depth cut to fit
-the card), runs the paper's loop (microbenchmark -> calibrate -> predict ->
+plain versions, serves h2o-danube-1.8b, mamba2-1.3b, qwen3-moe-235b-a22b,
+deepseek-v3-671b, recurrentgemma-9b, whisper-tiny and llama-3.2-vision-90b
+at full width (the MoE and vision models with their depth cut to fit the
+card), runs the paper's loop (microbenchmark -> calibrate -> predict ->
 validate) on the card, and trains h2o-danube-1.8b at full width and depth.
 
     python3 chip_smoke.py
@@ -26,9 +27,11 @@ non-zero and prints no result):
                rtol 1e-2; head dims 16/64/80/128/256, recurrentgemma-9b's
                shape (D=256, MQA, window 2048), its smoke config's (D=16),
                a head dim the wrapper pads (d=40 runs at 64), qwen3-moe's
-               (64 query heads on 4 kv heads, D=128, S=8192) and
+               (64 query heads on 4 kv heads, D=128, S=8192),
                deepseek-v3's dense prefix block's (128 heads of 128,
-               S=2048), each timed in both dtypes.
+               S=2048), whisper-tiny's encoder's (non-causal, 6 heads of
+               64, S=1536) and llama-3.2-vision's (64 query heads on 8,
+               D=128, S=8192), each timed in both dtypes.
                ssd (fp32 only, as the model sends it): 1e-4 against the
                plain chunked version, the reference's 5e-4 /
                5e-3 (tests/test_kernels.py:181) against the exact scan,
@@ -88,19 +91,38 @@ non-zero and prints no result):
                (8 of 94 layers, 8192) flash attention 8 times and
                deepseek-v3-671b (one dense prefix and two MoE layers of 61,
                2048 tokens) once, in its prefix (MLA reaches no kernel, as
-               in the reference); PREFILL gives the cuts and why.  The fp32
-               check runs at depth 2.  For the MoE models the lines also
-               count, with ``models.moe.route``, the assignments each layer
-               drops and those the fp32 paths route differently.
+               in the reference); recurrentgemma-9b (full depth, 8192)
+               flash attention 12 times (its local attention; the RG-LRU
+               scan is plain torch, as the reference's is no kernel),
+               whisper-tiny (full size, 1536 tokens and 1536 frames) 8
+               times (4 non-causal in the encoder, 4 causal in the
+               decoder; cross-attention reaches none, as in the reference)
+               and llama-3.2-vision-90b (20 of 100 layers, 8192 tokens,
+               1601 image embeddings) 20 times; PREFILL gives the cuts and
+               why.  The fp32 check runs at depth 2 for the MoE models,
+               5 for llama-3.2-vision, the others whole.  For the MoE
+               models the lines also count, with ``models.moe.route``, the
+               assignments each layer drops and those the fp32 paths route
+               differently.  Every cross-attention gate (``xgate``, 0 at
+               init, which would hide cross-attention) is set to XGATE on
+               each model a check compares.  The kernel path drops the
+               attention softcap (recurrentgemma-9b's 30), as the
+               reference's does, so the plain path it is held to runs at
+               softcap 0; the softcap's own effect is printed.
 5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens)
                for each model (``greedy_generate`` on the depth-cut config
-               for the MoE models); tokens checked, no kernel launched, the
-               prompt's last-token logits of the kernel path held against
-               the sequential cache prefill (danube in bf16, the others in
-               fp32; the MoE models on PROMPT_CHECK_ROWS of the prompt
-               at their fp32 check depth with the capacity factor raised
+               for the MoE and vision models; the audio and vision models
+               with fp32 memory embeddings from the seed); tokens checked,
+               no kernel launched, the prompt's last-token logits of the
+               kernel path held against the sequential cache prefill
+               (danube in bf16, the others in fp32, llama-3.2-vision at its
+               fp32 check depth; the MoE models on PROMPT_CHECK_ROWS of
+               the prompt at their fp32 check depth with the capacity
+               factor raised
                to E/k, so nothing drops, and the served forward's drops
-               and the two paths' route flips printed).
+               and the two paths' route flips printed; recurrentgemma-9b
+               also holds the plain make_prefill against the sequential
+               prefill at softcap 30).
 6. train     - (a) h2o-danube-1.8b at full width with 2 layers, fp32:
                two ``make_train_step`` steps (batch 2, seq 256) on the
                card against the same steps on the CPU from one numpy
@@ -109,7 +131,9 @@ non-zero and prints no result):
                microbatches 2 and remat "block" / "full" against the plain
                steps on the card; qwen3moe-smoke and dsv3-smoke (the MoE
                dispatch, MLA, the dense prefix, the aux and MTP losses)
-               card against CPU; all at the reference's atol 2e-5 / rtol
+               card against CPU, and rg-smoke, whisper-smoke and vlm-smoke
+               (the RG-LRU, the encoder, cross-attention with live gates)
+               the same way; all at the reference's atol 2e-5 / rtol
                2e-4 (tests/test_substrate.py:213-215).  Resume through
                ``launch.train.train`` (danube-smoke, 2 + 2 steps with a
                checkpoint under ``build/``) against 4 straight steps at
@@ -122,9 +146,10 @@ non-zero and prints no result):
                three below the first three).  No kernel is launched in the
                phase: the model trains on its plain paths, as the
                reference does.
-7. result    - one JSON line listing every kernel (a kernel's launches:
-               the sum over the main paths' counted runs, each path's
-               count under launches_by_path), then the last line
+7. result    - the script's seconds; one JSON line listing every kernel
+               (a kernel's launches: the sum over the main paths' counted
+               runs, each path's count under launches_by_path), then the
+               last line
                ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for matmuls and cuDNN, so every fp32 product on the
@@ -151,7 +176,7 @@ os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import torch  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, memory_len  # noqa: E402
 from repro_torch.core import hardware, microbench  # noqa: E402
 from repro_torch.device import generator  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -169,6 +194,7 @@ from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.blocks import CrossAttnBlock  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     jax_layout, params_from_jax, params_to_jax)
 from repro_torch.train.serve_step import (  # noqa: E402
@@ -180,6 +206,10 @@ DANUBE = "h2o-danube-1.8b"
 MAMBA2 = "mamba2-1.3b"
 QWEN3 = "qwen3-moe-235b-a22b"
 DSV3 = "deepseek-v3-671b"
+RG = "recurrentgemma-9b"
+WHISPER = "whisper-tiny"
+VISION = "llama-3.2-vision-90b"
+ARCHS = (DANUBE, MAMBA2, QWEN3, DSV3, RG, WHISPER, VISION)
 SEED = 0
 PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 # Each served model's prefill: (prompt length, the served config's depth
@@ -191,12 +221,28 @@ PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 # checks hold the kernel path against the plain one at depth 2 (24.9 and
 # 58.0 GB).  deepseek-v3 prefills 2048 tokens: MLA materialises its fp32
 # scores whole, as the reference does, 2.15 GB a tensor at 2048 (8.6 GB at
-# 4096, which does not fit beside the weights).
+# 4096, which does not fit beside the weights).  recurrentgemma-9b is whole
+# in both dtypes: 17.3 GB in bf16, 34.5 GB in fp32, beside two fp32 logit
+# tensors of 8.4 GB (8192 x 256,000) and the head's product.  whisper-tiny
+# is whole, 1536 tokens against 1536 frames: 30 s of audio (1500 frames)
+# rounded up to a multiple of 128, so that the flash path runs, with the
+# encoder and decoder lengths equal as the config maps them (enc_seq_ratio
+# 1).  llama-3.2-vision-90b: 20 of 100 layers (4 groups of four attn and a
+# cross_attn block, 39.6 GB in bf16; 100 would be 181 GB), the fp32 check
+# at 5 (one group, 26.1 GB); the memory is its 1601 image embeddings.
 PREFILL = {DANUBE: (PREFILL_LEN, {}, {}),
            MAMBA2: (PREFILL_LEN, {}, {}),
            QWEN3: (PREFILL_LEN, {"n_layers": 8}, {"n_layers": 2}),
            DSV3: (2048, {"n_layers": 3, "first_dense": 1},
-                  {"n_layers": 2, "first_dense": 1})}
+                  {"n_layers": 2, "first_dense": 1}),
+           RG: (PREFILL_LEN, {}, {}),
+           WHISPER: (1536, {}, {}),
+           VISION: (PREFILL_LEN, {"n_layers": 20}, {"n_layers": 5})}
+# Every cross-attention gate is set to this on each model a check compares
+# (both sides): the reference's init sets it to 0, and tanh(0) = 0 would
+# make a cross_attn block add nothing from the memory, so a check would pass
+# whatever cross-attention computed.
+XGATE = 0.5
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 256, 32
 KERNELS = {"flash_attention": fa_kernel, "ssd": ssd_kernel,
            "matmul": mm_kernel, "rmsnorm": rms_kernel}
@@ -240,8 +286,16 @@ BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
 # sequential cache prefill in fp32 (the served weights cast up).
 # The MoE models' bf16 logits held the bound on the card with room
 # (qwen3-moe 3.906e-2, deepseek-v3 6.445e-2: about two bf16 units of a
-# logit near 7), so they are gated as danube's are.
-BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True}
+# logit near 7), so they are gated as danube's are; so is whisper-tiny
+# (2.344e-2 on logits under 2, 4 + 4 layers).  recurrentgemma-9b is printed
+# as mamba2 is: 26 recurrent layers carry a bf16 flip into every later
+# token, and its kernel and plain paths were 1.914e-1 apart in bf16 on the
+# card (4.268e-5 in fp32, gated), as far apart as the bound itself.  So is
+# llama-3.2-vision: 1.309e-1 at depth 20 (6.253e-5 in fp32), past atol, so
+# whether a run passes would turn on which logit the largest flip lands on.
+# An ungated model's line says whether it held the bound.
+BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True,
+              RG: False, WHISPER: True, VISION: False}
 # The MoE models' prompt logits are held in fp32, on the prefill phase's
 # fp32 model (its depth cut: an fp32 copy of the served model would not fit
 # beside it), with the capacity factor raised to E/k on both sides, so that
@@ -256,7 +310,9 @@ BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True}
 # row, so a fault across rows of the flattened dispatch or of the caches'
 # batch index shows.
 PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32,
-                      QWEN3: torch.float32, DSV3: torch.float32}
+                      QWEN3: torch.float32, DSV3: torch.float32,
+                      RG: torch.float32, WHISPER: torch.float32,
+                      VISION: torch.float32}
 PROMPT_CHECK_ROWS = {QWEN3: GEN_BATCH, DSV3: 2}
 # SSD kernel against ``ssd_chunked`` at the same chunk: the same algorithm
 # in fp32 with its sums in another order (64-deep 3xTF32 partials, a warp
@@ -364,19 +420,24 @@ def read_launches() -> dict:
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-def expected_launches(cfg) -> dict:
-    """Kernel launches of one ``make_prefill`` request with the kernels on:
-    one flash-attention call per GQA attention block (``attn``,
-    ``local_attn``, ``moe`` without MLA, and each dense prefix block), none
-    for MLA, one SSD call per ssm block; the models never reach the matmul
-    or rmsnorm kernels, as in the reference."""
+def expected_launches(cfg, mlen) -> dict:
+    """Kernel launches of one ``make_prefill`` request with the kernels on,
+    over a prompt whose length is a multiple of 128 and a memory of
+    ``mlen`` (None without one): one flash-attention call per GQA
+    self-attention (the ``attn``, ``local_attn`` and ``cross_attn`` blocks,
+    ``moe`` without MLA, each dense prefix block, and each encoder block
+    when mlen % 128 == 0), none for MLA or cross-attention, one SSD call per
+    ssm block; the models never reach the matmul or rmsnorm kernels, as in
+    the reference."""
     per_group = {"flash_attention": sum(
-        k in ("attn", "local_attn") or (k == "moe" and not cfg.use_mla)
-        for k in cfg.pattern),
+        k in ("attn", "local_attn", "cross_attn")
+        or (k == "moe" and not cfg.use_mla) for k in cfg.pattern),
         "ssd": sum(k == "ssm" for k in cfg.pattern),
         "matmul": 0, "rmsnorm": 0}
     want = {name: cfg.n_groups * n for name, n in per_group.items()}
     want["flash_attention"] += cfg.first_dense
+    if cfg.enc_layers and mlen % 128 == 0:
+        want["flash_attention"] += cfg.enc_layers
     return want
 
 
@@ -439,9 +500,8 @@ CHECKS = [  # name, b, hq, hkv, s, d, causal, window, strided
 # The main path's call: one layer of the 8192-token prefill request, bf16.
 MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
         True)
-# recurrentgemma-9b's local attention at the same prompt length: MQA, head
-# dim 256, window 2048 (configs/recurrentgemma_9b.py).  No ported path runs
-# that model yet; its shape is checked and timed in fp32 and bf16.
+# recurrentgemma-9b's local attention in its 8192-token prefill (12 calls a
+# request): MQA, head dim 256, window 2048 (configs/recurrentgemma_9b.py).
 D256 = ("recurrentgemma-9b S=8192 w=2048 D=256", 1, 16, 1, PREFILL_LEN, 256,
         True, 2048, True)
 # The smallest instantiation: recurrentgemma-9b's smoke config (4 q heads, 1
@@ -460,16 +520,27 @@ QWEN3_ATTN = ("qwen3-moe S=8192 Hq=64 Hkv=4 D=128", 1, 64, 4, PREFILL_LEN,
               128, True, 0, True)
 DSV3_PREFIX = ("deepseek-v3 prefix S=2048 H=128 D=128", 1, 128, 128, 2048,
                128, True, 0, True)
+# The encoder and cross-attention paths' calls: whisper-tiny's encoder
+# (bidirectional, 6 heads of 64, over its 1536 frames; 4 calls a request)
+# and llama-3.2-vision's self-attention (64 query heads on 8 kv heads, head
+# dim 128, causal; 20 calls a request at depth 20).
+WHISPER_ENC = ("whisper-tiny encoder S=1536 H=6 D=64 non-causal", 1, 6, 6,
+               1536, 64, False, 0, True)
+VISION_ATTN = ("llama-3.2-vision S=8192 Hq=64 Hkv=8 D=128", 1, 64, 8,
+               PREFILL_LEN, 128, True, 0, True)
 
 
-def sdpa_ms(q, k, v, *, sm_scale, window, reps) -> float:
+def sdpa_ms(q, k, v, *, sm_scale, causal, window, reps) -> float:
     """Yardstick only (the port never calls it): PyTorch's fused attention
-    with the same boolean causal/window mask, on the kv heads repeated
-    beforehand."""
+    with the same boolean causal/window mask (none when bidirectional), on
+    the kv heads repeated beforehand."""
     hq, hkv, s = q.shape[1], k.shape[1], q.shape[2]
     ids = torch.arange(s, device="cuda")
-    mask = (ids[None, :] <= ids[:, None]) & (ids[None, :] >= ids[:, None]
-                                             - window)
+    mask = None
+    if causal:
+        mask = ids[None, :] <= ids[:, None]
+        if window > 0:
+            mask &= ids[None, :] >= ids[:, None] - window
     k_rep = k.repeat_interleave(hq // hkv, dim=1)
     v_rep = v.repeat_interleave(hq // hkv, dim=1)
     return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -499,8 +570,8 @@ def timed_case(spec, dtype, gen) -> dict:
     kernel_ms = cuda_ms(lambda: fa_kernel.mha(q, k, v, **kw), reps=10,
                         warmup=2)
     plain_ms = cuda_ms(lambda: fa_ref.attention(q, k, v, **kw), reps=3)
-    library_ms = sdpa_ms(q, k, v, sm_scale=kw["sm_scale"], window=window,
-                         reps=5)
+    library_ms = sdpa_ms(q, k, v, sm_scale=kw["sm_scale"], causal=causal,
+                         window=window, reps=5)
     bound_ms, bound_by = attention_bound_ms(b, hq, hkv, s, d, causal, window,
                                             dtype)
     extra = {}
@@ -555,7 +626,9 @@ def flash_attention_checks() -> dict:
     extra_shapes = {}
     for key, spec in (("d256", D256), ("d16", D16), ("d40", D40),
                       ("qwen3_moe", QWEN3_ATTN),
-                      ("dsv3_prefix", DSV3_PREFIX)):
+                      ("dsv3_prefix", DSV3_PREFIX),
+                      ("whisper_encoder", WHISPER_ENC),
+                      ("vision", VISION_ATTN)):
         extra_shapes[key] = {"shape": case_shape(spec)}
         for dtype in (torch.float32, torch.bfloat16):
             case = timed_case(spec, dtype, gen)
@@ -1466,8 +1539,11 @@ def flipped(routes_a, routes_b) -> list:
 def depth(cfg) -> str:
     full = get_config(cfg.name)
     cut = f"{cfg.n_layers} of {full.n_layers} layers"
-    return cut + (f", first_dense {cfg.first_dense} of {full.first_dense}"
-                  if full.first_dense else "")
+    if full.first_dense:
+        cut += f", first_dense {cfg.first_dense} of {full.first_dense}"
+    if full.enc_layers:
+        cut += f", encoder {cfg.enc_layers} of {full.enc_layers}"
+    return cut
 
 
 def moe_fields(cfg, tokens: int) -> dict:
@@ -1487,85 +1563,134 @@ def record_launches(entries: dict, path: str, launches: dict) -> None:
             entries[name]["launches"] = sum(by_path.values())
 
 
+def live_xgates(model) -> dict:
+    """Set every cross-attention gate of ``model`` to XGATE; the fields its
+    phase lines print (none for a model without one)."""
+    gates = [m.xgate for m in model.modules() if isinstance(m, CrossAttnBlock)]
+    with torch.no_grad():
+        for g in gates:
+            g.fill_(XGATE)
+    return {"xgate": XGATE, "xgates_set": len(gates)} if gates else {}
+
+
+def memory_for(cfg, batch: int, seq: int):
+    """The stub frontend's fp32 memory embeddings (B, memory_len, d) for a
+    prompt of ``seq`` tokens, from an explicit generator on the card; None
+    for a text-only model."""
+    mlen = memory_len(cfg, seq)
+    if mlen is None:
+        return None
+    return torch.randn((batch, mlen, cfg.d_model),
+                       generator=generator(SEED + 2, "cuda"), device="cuda")
+
+
+def plain(cfg):
+    """The plain path a kernel path is held to: no kernel, and no attention
+    softcap, which the kernel path drops as the reference's does."""
+    return cfg.replace(use_flash_kernel=False, attn_logit_softcap=0.0)
+
+
 def prefill_requests(arch: str, entries: dict) -> None:
     """The main path of ``arch``: fp32 kernel path against the plain path,
     then the bf16 request counted and timed, at PREFILL's length and depth
     cuts.  Records each kernel's launch count of the counted run in its
     entry; for the MoE models, prints the routes that differ between the
-    fp32 paths and the dropped assignments of the bf16 request."""
+    fp32 paths and the dropped assignments of the bf16 request; for a model
+    with an attention softcap, the kernel path's distance from the plain
+    path with the softcap on (not gated)."""
     seq, served_cut, check_cut = PREFILL[arch]
     cfg = get_config(arch).replace(use_flash_kernel=True, **served_cut)
-    want = expected_launches(cfg)
     tokens = torch.randint(0, cfg.vocab, (1, seq),
                            generator=generator(SEED + 1, "cuda"),
                            device="cuda")
+    memory = memory_for(cfg, 1, seq)
+    mlen = None if memory is None else memory.shape[1]
+    want = expected_launches(cfg, mlen)
+    mem_fields = {} if memory is None else {"memory": mlen}
 
     # fp32: the kernel path against the plain path (attn_chunk=1024 ->
     # _sdpa_chunked; mamba2: ssd_chunked), tight tolerance.
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32", **check_cut)
     model = build(cfg32, "cuda").init(generator(SEED, "cuda"))
+    gates = live_xgates(model)
     prefill = make_prefill(model)
     reset_launches()
     with recorded_routes(cfg32) as routes_k:
-        logits_k = prefill(tokens)
+        logits_k = prefill(tokens, memory)
     torch.cuda.synchronize()
     launches32 = read_launches()
     check_launches(f"{arch} fp32 prefill", launches32,
-                   expected_launches(cfg32))
-    model.cfg = cfg32.replace(use_flash_kernel=False)
+                   expected_launches(cfg32, mlen))
+    model.cfg = plain(cfg32)
     with recorded_routes(cfg32) as routes_p:
-        logits_p = prefill(tokens)
+        logits_p = prefill(tokens, memory)
     what = f"{arch} fp32 prefill logits, kernel vs plain"
     err32 = max_abs_err(what, logits_k, logits_p)
-    routes = {}
+    within = torch.allclose(logits_k, logits_p, atol=FP32_REQUEST_TOL,
+                            rtol=FP32_REQUEST_TOL)
+    logits_absmax = logits_p.abs().max().item()
+    del logits_p
+    extra = {}
     if cfg.n_experts:
-        routes = {"route_flips_per_layer": flipped(routes_k, routes_p),
-                  "dropped_per_layer": dropped(routes_p)}
-    phase("prefill", arch=arch, dtype="float32", tokens=seq,
-          depth=repr(depth(cfg32)), launches=launches32,
+        extra = {"route_flips_per_layer": flipped(routes_k, routes_p),
+                 "dropped_per_layer": dropped(routes_p)}
+    if cfg.attn_logit_softcap:
+        model.cfg = cfg32.replace(use_flash_kernel=False)
+        gap = max_abs_err(f"{arch} fp32 plain logits at softcap "
+                          f"{cfg.attn_logit_softcap}", prefill(tokens, memory),
+                          logits_k)
+        extra["softcap_gap_not_gated"] = {cfg.attn_logit_softcap:
+                                          f"{gap:.3e}"}
+    phase("prefill", arch=arch, dtype="float32", tokens=seq, **mem_fields,
+          depth=repr(depth(cfg32)), launches=launches32, **gates,
           max_abs_err=f"{err32:.3e}", tol=FP32_REQUEST_TOL,
-          logits_absmax=f"{logits_p.abs().max().item():.3f}",
-          **moe_fields(cfg32, seq), **routes)
-    check_close(what, logits_k, logits_p, atol=FP32_REQUEST_TOL,
-                rtol=FP32_REQUEST_TOL)
-    del model, prefill, logits_k, logits_p, routes_k, routes_p
+          logits_absmax=f"{logits_absmax:.3f}",
+          **moe_fields(cfg32, seq), **extra)
+    if not within:
+        raise AssertionError(f"{what}: max abs err {err32:.3e} outside "
+                             f"atol=rtol={FP32_REQUEST_TOL}")
+    del model, prefill, logits_k, routes_k, routes_p
     torch.cuda.empty_cache()
 
     # bf16: the served dtype.  The counted run is the main path's run.
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+    live_xgates(model)
     prefill = make_prefill(model)
     with recorded_routes(cfg) as routes:              # warm-up
-        prefill(tokens)
+        prefill(tokens, memory)
     drops = {"dropped_per_layer": dropped(routes)} if cfg.n_experts else {}
     del routes
     logits_k = None
 
     def request():
         nonlocal logits_k
-        logits_k = prefill(tokens)
+        logits_k = prefill(tokens, memory)
     reset_launches()
     first_ms = host_ms(request)
     launches = read_launches()
     check_launches(f"{arch} bf16 prefill", launches, want)
     record_launches(entries, arch, launches)
     kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
-    model.cfg = cfg.replace(use_flash_kernel=False)
+    model.cfg = plain(cfg)
     logits_p = None
 
     def plain_request():
         nonlocal logits_p
-        logits_p = prefill(tokens)
+        logits_p = prefill(tokens, memory)
     plain_req_ms = sorted(host_ms(plain_request) for _ in range(3))
     what = f"{arch} bf16 prefill logits, kernel vs plain"
     if BF16_GATED[arch]:
         tol16 = BF16_REQUEST_TOL
         err16 = check_close(what, logits_k, logits_p, **tol16)
     else:
-        tol16 = "not gated (see BF16_GATED)"
+        held = torch.allclose(logits_k.float(), logits_p.float(),
+                              **BF16_REQUEST_TOL)
+        tol16 = f"not gated (see BF16_GATED); within {BF16_REQUEST_TOL}: " \
+                f"{held}"
         err16 = max_abs_err(what, logits_k, logits_p)
-    phase("prefill", arch=arch, dtype="bfloat16", tokens=seq,
-          depth=repr(depth(cfg)), launches=launches,
+    phase("prefill", arch=arch, dtype="bfloat16", tokens=seq, **mem_fields,
+          depth=repr(depth(cfg)), launches=launches, **gates,
           request_ms=[round(t, 3) for t in kernel_req_ms],
           plain_request_ms=[round(t, 3) for t in plain_req_ms],
           tok_per_s=f"{seq / kernel_req_ms[1] * 1e3:.1f}",
@@ -1593,23 +1718,30 @@ def prompt_route_flips(fast_routes, seq_routes, k: int) -> list:
 
 
 def cut_setup(arch: str):
-    """``launch.serve.setup`` (weights from SEED, a prompt from SEED + 1,
-    both made on the card) on the served config cut to PREFILL's depth: the
-    launcher takes the shipped configs only, as the reference's does."""
+    """``launch.serve.setup`` (weights from SEED; a prompt and, for the audio
+    and vision families, fp32 memory embeddings from SEED + 1; all made on
+    the card) on the served config cut to PREFILL's depth: the launcher
+    takes the shipped configs only, as the reference's does."""
     cfg = get_config(arch).replace(**PREFILL[arch][1])
     model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+    gen = generator(SEED + 1, "cuda")
     prompt = torch.randint(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT),
-                           generator=generator(SEED + 1, "cuda"),
-                           device="cuda")
-    return model, prompt
+                           generator=gen, device="cuda")
+    memory = None
+    mlen = memory_len(cfg, GEN_PROMPT)
+    if mlen is not None:
+        memory = torch.randn((GEN_BATCH, max(mlen, 4), cfg.d_model),
+                             generator=gen, device="cuda")
+    return model, prompt, memory
 
 
 def generation_request(arch: str) -> None:
     served_cut = PREFILL[arch][1]
     reset_launches()
     if served_cut:
-        model, prompt = cut_setup(arch)
-        out = greedy_generate(model, prompt, max_new=GEN_NEW)
+        model, prompt, memory = cut_setup(arch)
+        out = greedy_generate(model, prompt, max_new=GEN_NEW,
+                              memory_embeds=memory)
     else:
         out = serve(arch, smoke=False, batch=GEN_BATCH,
                     prompt_len=GEN_PROMPT, max_new=GEN_NEW, seed=SEED,
@@ -1625,9 +1757,9 @@ def generation_request(arch: str) -> None:
         raise AssertionError("token ids out of range")
 
     if not served_cut:
-        model, prompt = setup(arch, smoke=False, batch=GEN_BATCH,
-                              prompt_len=GEN_PROMPT, seed=SEED,
-                              device="cuda")
+        model, prompt, memory = setup(arch, smoke=False, batch=GEN_BATCH,
+                                      prompt_len=GEN_PROMPT, seed=SEED,
+                                      device="cuda")
     served = model.cfg
     moe = {}
     if served.n_experts:
@@ -1652,8 +1784,9 @@ def generation_request(arch: str) -> None:
         tol = {"atol": FP32_REQUEST_TOL, "rtol": FP32_REQUEST_TOL}
     else:
         checked, tol = model, BF16_REQUEST_TOL
+    gates = live_xgates(checked)
     cfg = checked.cfg
-    check_prompt = prompt
+    check_prompt, check_memory = prompt, memory
     if cfg.n_experts:
         check_prompt = prompt[:PROMPT_CHECK_ROWS[arch]]
         tokens = check_prompt.numel()
@@ -1664,42 +1797,55 @@ def generation_request(arch: str) -> None:
                    checked_prompt=tuple(check_prompt.shape),
                    checked_capacity_factor=cfg.capacity_factor,
                    checked_cap=moe_mod.capacity(cfg, tokens))
-    checked.cfg = cfg.replace(use_flash_kernel=True)
-    with recorded_routes(cfg) as fast_routes:
-        last_fast = make_prefill(checked)(check_prompt)
-    checked.cfg = cfg
-    with recorded_routes(cfg, runs=check_prompt.shape[1]) as seq_routes, \
-            torch.inference_mode():
-        last_seq, _ = checked.prefill(
-            check_prompt, checked.init_cache(*check_prompt.shape))
-    if cfg.n_experts:
-        moe["route_flips_per_layer"] = prompt_route_flips(
-            fast_routes, seq_routes, cfg.top_k)
-    del fast_routes, seq_routes
-    what = f"{arch} prompt logits, make_prefill vs sequential prefill"
-    err = max_abs_err(what, last_fast, last_seq)
-    phase("generate", arch=arch, check=repr(what),
-          prompt_logits_dtype=str(check_dtype)[6:],
-          prompt_logits_err=f"{err:.3e}", tol=tol, **moe)
-    check_close(what, last_fast, last_seq, **tol)
-    del checked, last_fast, last_seq
+    # The kernel path drops the softcap, so it is held to the sequential
+    # prefill at softcap 0; with a softcap, the plain path is held to it at
+    # the config's value too.
+    checks = [("kernel", True, 0.0)]
+    if cfg.attn_logit_softcap:
+        checks.append(("plain", False, cfg.attn_logit_softcap))
+    for path, flash, cap in checks:
+        checked.cfg = cfg.replace(use_flash_kernel=flash,
+                                  attn_logit_softcap=cap)
+        with recorded_routes(cfg) as fast_routes:
+            last_fast = make_prefill(checked)(check_prompt, check_memory)
+        checked.cfg = cfg.replace(attn_logit_softcap=cap)
+        with recorded_routes(cfg, runs=check_prompt.shape[1]) as \
+                seq_routes, torch.inference_mode():
+            last_seq, _ = checked.prefill(
+                check_prompt, checked.init_cache(*check_prompt.shape),
+                memory_embeds=check_memory)
+        if cfg.n_experts:
+            moe["route_flips_per_layer"] = prompt_route_flips(
+                fast_routes, seq_routes, cfg.top_k)
+        del fast_routes, seq_routes
+        what = (f"{arch} prompt logits, make_prefill ({path} path, softcap "
+                f"{cap}) vs sequential prefill")
+        err = max_abs_err(what, last_fast, last_seq)
+        phase("generate", arch=arch, check=repr(what),
+              prompt_logits_dtype=str(check_dtype)[6:], **gates,
+              prompt_logits_err=f"{err:.3e}", tol=tol, **moe)
+        check_close(what, last_fast, last_seq, **tol)
+        del last_fast, last_seq
+    del checked
     if served_cut and check_dtype == torch.float32:
         torch.cuda.empty_cache()
-        model, prompt = cut_setup(arch)
+        model, prompt, memory = cut_setup(arch)
     else:
         model.cfg = served
     toks = None
 
     def generate():
         nonlocal toks
-        toks = greedy_generate(model, prompt, max_new=GEN_NEW)
+        toks = greedy_generate(model, prompt, max_new=GEN_NEW,
+                               memory_embeds=memory)
     gen_ms = host_ms(generate)
+    mem_fields = {} if memory is None else {"memory": memory.shape[1]}
     phase("generate", arch=arch, depth=repr(depth(served)), batch=GEN_BATCH,
-          prompt=GEN_PROMPT, new=GEN_NEW, kernel_launches=gen_launches,
-          request_ms=f"{gen_ms:.1f}",
+          prompt=GEN_PROMPT, **mem_fields, new=GEN_NEW,
+          kernel_launches=gen_launches, request_ms=f"{gen_ms:.1f}",
           tok_per_s=f"{GEN_BATCH * GEN_NEW / gen_ms * 1e3:.1f}",
           same_tokens_as_serve=bool(torch.equal(toks, out)))
-    del model, prompt
+    del model, prompt, memory
     torch.cuda.empty_cache()
 
 
@@ -1780,9 +1926,11 @@ def train_checks() -> None:
     card's steps against the CPU's from one numpy parameter tree, then
     microbatches 2 and remat block / full against the plain steps on the
     card; the MoE smoke configs (qwen3moe-smoke, dsv3-smoke: the dispatch,
-    MLA, the dense prefix, the aux and MTP losses) card against CPU; and
-    resume through ``launch.train.train`` (danube-smoke: the launcher takes
-    the shipped configs only)."""
+    MLA, the dense prefix, the aux and MTP losses), rg-smoke (the RG-LRU),
+    whisper-smoke (the encoder, cross-attention) and vlm-smoke
+    (cross-attention to image embeddings), their gates at XGATE, card
+    against CPU; and resume through ``launch.train.train`` (danube-smoke:
+    the launcher takes the shipped configs only)."""
     t0 = time.perf_counter()
     cfg = get_config(DANUBE).replace(n_layers=CHECK_LAYERS, dtype="float32",
                                      param_dtype="float32", remat="none")
@@ -1804,10 +1952,11 @@ def train_checks() -> None:
               params_max_abs_err=f"{max(errs):.3e}", tol=TRAIN_TOL)
         del other
     del card, tree
-    for arch in (QWEN3, DSV3):
+    for arch in (QWEN3, DSV3, RG, WHISPER, VISION):
         smoke = get_config(arch, smoke=True)
-        card_vs_cpu(params_to_jax(build(smoke, "cpu").init(
-            generator(SEED, "cpu"))), smoke)
+        model = build(smoke, "cpu").init(generator(SEED, "cpu"))
+        live_xgates(model)
+        card_vs_cpu(params_to_jax(model), smoke)
     torch.cuda.empty_cache()
 
     ckpt_dir = ROOT / "build" / "train_resume"
@@ -1895,6 +2044,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     machine()
@@ -1907,7 +2057,7 @@ def main() -> int:
     predict_serve(measured_hw, suite, tile_runs, entries)
     del tile_runs
     torch.cuda.empty_cache()
-    for arch in (DANUBE, MAMBA2, QWEN3, DSV3):
+    for arch in ARCHS:
         prefill_requests(arch, entries)
         generation_request(arch)
     torch.cuda.empty_cache()
@@ -1916,6 +2066,7 @@ def main() -> int:
     train_full()
     check_launches("the train phase", read_launches(),
                    {name: 0 for name in KERNELS})
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,11 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from ..configs import get_config
+from ..configs import get_config, memory_len
 from ..device import DeviceLike, generator, maybe_synchronize, \
     resolve_device
 from ..models import LanguageModel, build
@@ -20,25 +20,36 @@ from ..train.serve_step import greedy_generate
 
 
 def setup(arch: str, *, smoke: bool, batch: int, prompt_len: int, seed: int,
-          device: DeviceLike = None) -> Tuple[LanguageModel, torch.Tensor]:
-    """The model with random weights from ``seed`` and a random prompt from
-    ``seed + 1``, both made on ``device`` by explicit generators."""
+          device: DeviceLike = None
+          ) -> Tuple[LanguageModel, torch.Tensor, Optional[torch.Tensor]]:
+    """The model with random weights from ``seed``, a random prompt and, for
+    the audio and vision families, random fp32 memory embeddings (B,
+    max(memory_len, 4), d) from ``seed + 1``, all made on ``device`` by
+    explicit generators."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     model = build(cfg, dev).init(generator(seed, dev))
-    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
-                           generator=generator(seed + 1, dev), device=dev)
-    return model, prompt
+    gen = generator(seed + 1, dev)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=dev)
+    memory = None
+    mlen = memory_len(cfg, prompt_len)
+    if mlen is not None:
+        memory = torch.randn((batch, max(mlen, 4), cfg.d_model),
+                             generator=gen, device=dev)
+    return model, prompt, memory
 
 
 def serve(arch: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, max_new: int = 16, seed: int = 0,
           device: DeviceLike = None):
-    model, prompt = setup(arch, smoke=smoke, batch=batch,
-                          prompt_len=prompt_len, seed=seed, device=device)
+    model, prompt, memory = setup(arch, smoke=smoke, batch=batch,
+                                  prompt_len=prompt_len, seed=seed,
+                                  device=device)
     maybe_synchronize(model.device)
     t0 = time.perf_counter()
-    out = greedy_generate(model, prompt, max_new=max_new)
+    out = greedy_generate(model, prompt, max_new=max_new,
+                          memory_embeds=memory)
     maybe_synchronize(model.device)
     dt = time.perf_counter() - t0
     toks = batch * max_new

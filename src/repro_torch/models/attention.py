@@ -1,14 +1,13 @@
-"""Attention: GQA (full / sliding-window / chunked), prefill through the
-flash-attention kernel, and one-token decode against a KV cache.
+"""Attention: GQA (full / sliding-window / chunked, causal or
+bidirectional), prefill through the flash-attention kernel, cross-attention
+against a memory, and one-token decode against a KV cache.
 
-Counterpart of ``repro/models/attention.py`` for the causal self-attention
-blocks; cross-attention comes with the encoder families (ROADMAP.md, Queue
-A).  The reference's ``constrain`` sharding hints have no counterpart on one
-device.
+Counterpart of ``repro/models/attention.py``.  The reference's ``constrain``
+sharding hints have no counterpart on one device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -46,20 +45,23 @@ def _split_heads(x, n_heads, hd):
     return x.reshape(b, s, n_heads, hd)
 
 
-def _mask(sq: int, skv: int, *, window: int, q_offset: int = 0,
-          device=None):
-    """Causal mask of queries ``q_offset ..`` against keys ``0 .. skv-1``,
-    narrowed to the last ``window + 1`` keys when ``window > 0``."""
+def _mask(sq: int, skv: int, *, causal: bool, window: int,
+          q_offset: int = 0, device=None):
+    """Mask of queries ``q_offset ..`` against keys ``0 .. skv-1``: causal
+    when ``causal``, narrowed to keys no more than ``window`` behind the
+    query when ``window > 0``."""
     q_ids = q_offset + torch.arange(sq, device=device)[:, None]
     k_ids = torch.arange(skv, device=device)[None, :]
-    m = k_ids <= q_ids
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= k_ids <= q_ids
     if window > 0:
         m &= k_ids >= q_ids - window
     return m
 
 
-def _sdpa(q, k, v, *, scale: float, window: int, logit_cap: float,
-          q_offset: int = 0):
+def _sdpa(q, k, v, *, scale: float, causal: bool, window: int,
+          logit_cap: float, q_offset: int = 0):
     """q: (B,Sq,H,hd); k,v: (B,Skv,Hkv,hd) -> (B,Sq,H,hd)."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
@@ -67,56 +69,61 @@ def _sdpa(q, k, v, *, scale: float, window: int, logit_cap: float,
     qg = q.reshape(b, sq, hkv, group, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
     s = softcap(s, logit_cap)
-    mask = _mask(sq, k.shape[1], window=window, q_offset=q_offset,
-                 device=q.device)
+    mask = _mask(sq, k.shape[1], causal=causal, window=window,
+                 q_offset=q_offset, device=q.device)
     s = torch.where(mask[None, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _sdpa_chunked(q, k, v, *, scale: float, window: int, logit_cap: float,
-                  chunk: int):
+def _sdpa_chunked(q, k, v, *, scale: float, causal: bool, window: int,
+                  logit_cap: float, chunk: int):
     """Loop over query chunks; never materialises (Sq, Skv) for all queries
     at once.  Memory per step: (B,H,chunk,Skv).  The Python loop replaces
     the reference's ``lax.scan`` (and its ``unroll`` switch, which only
     served XLA's cost accounting)."""
     b, sq, h, hd = q.shape
     assert sq % chunk == 0, (sq, chunk)
-    outs = [_sdpa(q[:, i:i + chunk], k, v, scale=scale, window=window,
-                  logit_cap=logit_cap, q_offset=i)
+    outs = [_sdpa(q[:, i:i + chunk], k, v, scale=scale, causal=causal,
+                  window=window, logit_cap=logit_cap, q_offset=i)
             for i in range(0, sq, chunk)]
     return torch.cat(outs, dim=1)
 
 
-def attn_apply(p: Attention, x, cfg: ModelConfig, *, window: int = 0):
-    """Causal prefill attention, with the reference's dispatch order:
-    flash kernel, else chunked, else plain."""
+def attn_apply(p: Attention, x, cfg: ModelConfig, *, causal: bool = True,
+               window: int = 0, kv_override: Optional[torch.Tensor] = None):
+    """Prefill attention, with the reference's dispatch order: flash kernel,
+    else chunked, else plain.  ``kv_override`` (B, M, d): a memory that K and
+    V are projected from (cross-attention); then no rotary embedding is
+    applied and the kernel is not used, as in the reference."""
     dt = dtype_of(cfg)
     b, s, _ = x.shape
     hd = cfg.head_dim
+    src = x if kv_override is None else kv_override
     q = _split_heads(x @ p.wq.to(dt), cfg.n_heads, hd)
-    k = _split_heads(x @ p.wk.to(dt), cfg.n_kv_heads, hd)
-    v = _split_heads(x @ p.wv.to(dt), cfg.n_kv_heads, hd)
-    positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _split_heads(src @ p.wk.to(dt), cfg.n_kv_heads, hd)
+    v = _split_heads(src @ p.wv.to(dt), cfg.n_kv_heads, hd)
+    if kv_override is None:
+        positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     scale = hd ** -0.5
 
-    if cfg.use_flash_kernel and s % 128 == 0:
+    if cfg.use_flash_kernel and kv_override is None and s % 128 == 0:
         from ..kernels.flash_attention import flash_attention
         # (B,S,H,D) -> (B,H,S,D) views; the kernel reads them through their
         # strides.  Softcap is dropped on this path, as in the reference.
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), sm_scale=scale,
-                            causal=True, window=window)
+                            causal=causal, window=window)
         o = o.transpose(1, 2)
     elif cfg.attn_chunk > 0 and s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
-        o = _sdpa_chunked(q, k, v, scale=scale, window=window,
+        o = _sdpa_chunked(q, k, v, scale=scale, causal=causal, window=window,
                           logit_cap=cfg.attn_logit_softcap,
                           chunk=cfg.attn_chunk)
     else:
-        o = _sdpa(q, k, v, scale=scale, window=window,
+        o = _sdpa(q, k, v, scale=scale, causal=causal, window=window,
                   logit_cap=cfg.attn_logit_softcap)
     return o.reshape(b, s, cfg.n_heads * hd) @ p.wo.to(dt)
 

@@ -3,13 +3,15 @@
 
 Every block owns its norms and residual adds, and its ``forward`` returns
 ``(x, aux)``: the MoE block's load-balancing loss, a zero for the other
-kinds, as in the reference.  Ported kinds:
+kinds, as in the reference.  ``forward`` and ``decode`` take a ``memory``
+keyword (B, M, d), which only the cross-attention block reads.  Kinds:
   attn        full causal GQA attention + SwiGLU MLP
   local_attn  sliding-window GQA attention + MLP
   moe         (MLA or GQA) attention + MoE FFN
   ssm         Mamba2 mixer (SSD scan), no MLP
-The other kinds of the reference raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+  rglru       RG-LRU recurrent mixer + MLP
+  cross_attn  self-attn + cross-attn(memory) + MLP (whisper dec / vlm)
+  enc_attn    bidirectional attention + MLP (whisper encoder), no decode
 """
 from __future__ import annotations
 
@@ -22,14 +24,9 @@ from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import MLP, empty_param, mlp_apply, rmsnorm
-
-NOT_PORTED: Dict[str, str] = {
-    "rglru": "ROADMAP.md Queue A: SSM / hybrid families",
-    "cross_attn": "ROADMAP.md Queue A: encoder / cross-attention",
-    "enc_attn": "ROADMAP.md Queue A: encoder / cross-attention",
-}
 
 
 def _zero(x):
@@ -37,12 +34,15 @@ def _zero(x):
 
 
 class AttnBlock(nn.Module):
-    """``attn`` (window 0) and ``local_attn`` (window = cfg.window) blocks:
-    parameters ``ln1``, ``attn`` and, when d_ff > 0, ``ln2`` and ``mlp``."""
+    """``attn`` (window 0), ``local_attn`` (window = cfg.window) and
+    ``enc_attn`` (bidirectional, no decode) blocks: parameters ``ln1``,
+    ``attn`` and, when d_ff > 0, ``ln2`` and ``mlp``."""
 
-    def __init__(self, cfg: ModelConfig, device, *, window: int = 0):
+    def __init__(self, cfg: ModelConfig, device, *, window: int = 0,
+                 causal: bool = True):
         super().__init__()
         self.window = window
+        self.causal = causal
         self.ln1 = empty_param((cfg.d_model,), cfg, device)
         self.attn = attn_mod.Attention(cfg, device)
         self.has_mlp = cfg.d_ff > 0
@@ -58,9 +58,10 @@ class AttnBlock(nn.Module):
             self.ln2.fill_(1.0)
             self.mlp.init(generator, cfg)
 
-    def forward(self, x, cfg: ModelConfig):
+    def forward(self, x, cfg: ModelConfig, memory=None):
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        x = x + attn_mod.attn_apply(self.attn, h, cfg, window=self.window)
+        x = x + attn_mod.attn_apply(self.attn, h, cfg, causal=self.causal,
+                                    window=self.window)
         if self.has_mlp:
             h = rmsnorm(x, self.ln2, cfg.norm_eps)
             x = x + mlp_apply(self.mlp, h, cfg)
@@ -72,8 +73,12 @@ class AttnBlock(nn.Module):
                                              window=self.window,
                                              device=device)}
 
-    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig):
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig,
+               memory=None):
         """One token; updates ``cache`` in place and returns it."""
+        if not self.causal:
+            raise TypeError("a bidirectional (enc_attn) block has no "
+                            "one-token decode")
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         o, cache["kv"] = attn_mod.decode_attn_apply(
             self.attn, h, cache["kv"], pos, cfg, window=self.window)
@@ -104,7 +109,7 @@ class MoeBlock(nn.Module):
         self.ln2.fill_(1.0)
         self.moe.init(generator, cfg)
 
-    def forward(self, x, cfg: ModelConfig):
+    def forward(self, x, cfg: ModelConfig, memory=None):
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         if self.use_mla:
             x = x + mla_mod.mla_apply(self.attn, h, cfg)
@@ -122,7 +127,8 @@ class MoeBlock(nn.Module):
         return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len,
                                              device=device)}
 
-    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig):
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig,
+               memory=None):
         """One token; updates ``cache`` in place and returns it."""
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         if self.use_mla:
@@ -151,7 +157,7 @@ class SsmBlock(nn.Module):
         self.ln1.fill_(1.0)
         self.ssm.init(generator, cfg)
 
-    def forward(self, x, cfg: ModelConfig):
+    def forward(self, x, cfg: ModelConfig, memory=None):
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         return x + ssm_mod.ssm_apply(self.ssm, h, cfg), _zero(x)
 
@@ -159,12 +165,116 @@ class SsmBlock(nn.Module):
                    device) -> Dict:
         return {"ssm": ssm_mod.init_ssm_cache(cfg, batch, device)}
 
-    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig):
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig,
+               memory=None):
         """One token; updates ``cache`` in place and returns it."""
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         o, cache["ssm"] = ssm_mod.ssm_decode(self.ssm, h, cache["ssm"], pos,
                                              cfg)
         return x + o, cache
+
+
+class RglruBlock(nn.Module):
+    """``rglru`` block: parameters ``ln1``, ``lru`` (the RG-LRU mixer) and,
+    when d_ff > 0, ``ln2`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln1 = empty_param((cfg.d_model,), cfg, device)
+        self.lru = rglru_mod.RGLRU(cfg, device)
+        self.has_mlp = cfg.d_ff > 0
+        if self.has_mlp:
+            self.ln2 = empty_param((cfg.d_model,), cfg, device)
+            self.mlp = MLP(cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        self.ln1.fill_(1.0)
+        self.lru.init(generator, cfg)
+        if self.has_mlp:
+            self.ln2.fill_(1.0)
+            self.mlp.init(generator, cfg)
+
+    def _mlp(self, x, cfg: ModelConfig):
+        if self.has_mlp:
+            x = x + mlp_apply(self.mlp, rmsnorm(x, self.ln2, cfg.norm_eps),
+                              cfg)
+        return x
+
+    def forward(self, x, cfg: ModelConfig, memory=None):
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        x = x + rglru_mod.rglru_apply(self.lru, h, cfg)
+        return self._mlp(x, cfg), _zero(x)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   device) -> Dict:
+        return {"lru": rglru_mod.init_rglru_cache(cfg, batch, device)}
+
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig,
+               memory=None):
+        """One token; updates ``cache`` in place and returns it."""
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        o, cache["lru"] = rglru_mod.rglru_decode(self.lru, h, cache["lru"],
+                                                 pos, cfg)
+        return self._mlp(x + o, cfg), cache
+
+
+class CrossAttnBlock(nn.Module):
+    """``cross_attn`` block: causal self-attention (``ln1``, ``attn``), then
+    attention from the stream to a memory (``lnx``, ``xattn``) scaled by
+    tanh of the 0-d gate ``xgate`` (zero at init, as in the reference: a
+    fresh block adds nothing from the memory), then the MLP (``ln2``,
+    ``mlp``)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = empty_param((d,), cfg, device)
+        self.attn = attn_mod.Attention(cfg, device)
+        self.lnx = empty_param((d,), cfg, device)
+        self.xattn = attn_mod.Attention(cfg, device)
+        self.ln2 = empty_param((d,), cfg, device)
+        self.mlp = MLP(cfg, device)
+        self.xgate = empty_param((), cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        self.ln1.fill_(1.0)
+        self.attn.init(generator, cfg)
+        self.lnx.fill_(1.0)
+        self.xattn.init(generator, cfg)
+        self.ln2.fill_(1.0)
+        self.mlp.init(generator, cfg)
+        self.xgate.zero_()
+
+    def _cross_and_mlp(self, x, cfg: ModelConfig, memory):
+        if memory is None:
+            raise ValueError("a cross_attn block needs memory")
+        h = rmsnorm(x, self.lnx, cfg.norm_eps)
+        xo = attn_mod.attn_apply(self.xattn, h, cfg, causal=False,
+                                 kv_override=memory)
+        x = x + torch.tanh(self.xgate).to(x.dtype) * xo
+        h = rmsnorm(x, self.ln2, cfg.norm_eps)
+        return x + mlp_apply(self.mlp, h, cfg)
+
+    def forward(self, x, cfg: ModelConfig, memory=None):
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        x = x + attn_mod.attn_apply(self.attn, h, cfg)
+        return self._cross_and_mlp(x, cfg, memory), _zero(x)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
+                   device) -> Dict:
+        return {"kv": attn_mod.init_kv_cache(cfg, batch, max_len,
+                                             device=device)}
+
+    def decode(self, x, cache: Dict, pos: int, cfg: ModelConfig,
+               memory=None):
+        """One token: self-attention from the cache (updated in place), then
+        cross-attention against the whole memory."""
+        h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        o, cache["kv"] = attn_mod.decode_attn_apply(self.attn, h,
+                                                    cache["kv"], pos, cfg)
+        return self._cross_and_mlp(x + o, cfg, memory), cache
 
 
 REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], nn.Module]] = {
@@ -173,13 +283,13 @@ REGISTRY: Dict[str, Callable[[ModelConfig, torch.device], nn.Module]] = {
                                                 window=cfg.window),
     "moe": MoeBlock,
     "ssm": SsmBlock,
+    "rglru": RglruBlock,
+    "cross_attn": CrossAttnBlock,
+    "enc_attn": lambda cfg, device: AttnBlock(cfg, device, causal=False),
 }
 
 
 def make_block(kind: str, cfg: ModelConfig, device) -> nn.Module:
-    if kind in REGISTRY:
-        return REGISTRY[kind](cfg, device)
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet ({NOT_PORTED[kind]})")
-    raise KeyError(f"unknown block kind {kind!r}")
+    if kind not in REGISTRY:
+        raise KeyError(f"unknown block kind {kind!r}")
+    return REGISTRY[kind](cfg, device)

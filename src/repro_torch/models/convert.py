@@ -4,11 +4,15 @@ same function and a checkpoint written by either restores in the other.
 
 The reference (``repro/models/model.py:33-72``) keeps each block parameter
 STACKED over groups under ``params["groups"]["b<i>"]``, leading dim
-n_groups, and each dense prefix block parameter stacked over the
-``first_dense`` blocks under ``params["prefix"]``; the port keeps one module
-per group (``groups.<g>.b<i>``) and per prefix block (``prefix.<i>``).  The
-MTP head (``mtp``) is not stacked.  Leaf names are the same on both sides,
-so the mapping is by path.  A train state
+n_groups, each dense prefix block parameter stacked over the
+``first_dense`` blocks under ``params["prefix"]``, and each encoder block
+parameter stacked over the ``enc_layers`` blocks one level down, under
+``params["encoder"]["blocks"]``; the port keeps one module per group
+(``groups.<g>.b<i>``), per prefix block (``prefix.<i>``) and per encoder
+block (``encoder.blocks.<i>``).  The MTP head (``mtp``) and the encoder's
+``final_norm`` are not stacked.  A 0-d leaf of a block (the cross-attention
+gate ``xgate``) stacks to (n,).  Leaf names are the same on both sides, so
+the mapping is by path.  A train state
 (``train.train_step.init_state``) holds named tensors in the port's names:
 ``params``, the optimizer's ``mu`` / ``nu`` and, with compressed gradients,
 ``residuals``; each maps the same way, and the optimizer's ``step`` as it
@@ -27,24 +31,32 @@ from ..device import DeviceLike
 from .model import LanguageModel
 
 
-STACKED = ("groups", "prefix")
+STACKED = ("groups", "prefix", "encoder.blocks")
+
+
+def _stack_of(path: str) -> Optional[str]:
+    """The stacked part (an entry of STACKED) a path lies in, or None."""
+    return next((head for head in STACKED if path.startswith(head + ".")),
+                None)
 
 
 def split_stacked(name: str) -> Optional[Tuple[str, int]]:
     """A port parameter name in a stacked part -> (the reference's leaf
     path, the index along its leading dim): ``groups.3.b0.attn.wq`` ->
-    (``groups.b0.attn.wq``, 3).  None for a name outside them."""
-    head, _, rest = name.partition(".")
-    if head not in STACKED:
+    (``groups.b0.attn.wq``, 3), ``encoder.blocks.1.ln1`` ->
+    (``encoder.blocks.ln1``, 1).  None for a name outside them."""
+    head = _stack_of(name)
+    if head is None:
         return None
-    i, rest = rest.split(".", 1)
+    i, rest = name[len(head) + 1:].split(".", 1)
     return f"{head}.{rest}", int(i)
 
 
 def _unstacked_names(path: str, n: int) -> Iterator[str]:
     """The reference's stacked leaf path -> the port's names of its ``n``
     slices."""
-    head, rest = path.split(".", 1)
+    head = _stack_of(path)
+    rest = path[len(head) + 1:]
     return (f"{head}.{i}.{rest}" for i in range(n))
 
 
@@ -72,9 +84,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
 
     Each leaf is loaded at the dtype of the port parameter it fills, which
     keeps the reference's dtype roles: the leaves the reference pins to
-    fp32 (mamba2's ``a_log``, ``dt_bias``, ``d_skip``) stay fp32 under a
-    bf16 param dtype.  A leaf the port model does not hold, or a parameter
-    no leaf fills, raises."""
+    fp32 (mamba2's ``a_log``, ``dt_bias``, ``d_skip``, the RG-LRU's ``lam``,
+    the MoE router) stay fp32 under a bf16 param dtype.  A leaf the port
+    model does not hold, or a parameter no leaf fills, raises."""
     if dtype is not None:
         cfg = cfg.replace(param_dtype=str(dtype).removeprefix("torch."))
     model = LanguageModel(cfg, device)
@@ -88,10 +100,11 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
         state[path] = _tensor(a, model.device, want[path].dtype)
 
     depth = {"groups": ("n_groups", cfg.n_groups),
-             "prefix": ("first_dense", cfg.first_dense)}
+             "prefix": ("first_dense", cfg.first_dense),
+             "encoder.blocks": ("enc_layers", cfg.enc_layers)}
     for path, a in _leaves(tree):
-        head = path.split(".", 1)[0]
-        if head not in STACKED:
+        head = _stack_of(path)
+        if head is None:
             put(path, a)
             continue
         a = np.asarray(a)
@@ -123,7 +136,8 @@ def jax_layout(named: Mapping[str, torch.Tensor]) -> Dict:
     the reference's nested layout, group leaves stacked over the groups
     (``{"groups": {"b0": {"attn": {"wq": (n_groups, ...)}}}}``) and prefix
     leaves over the prefix blocks.  Leaves are CPU copies, detached, in
-    their own dtype."""
+    their own dtype.  Encoder block leaves are stacked over the encoder's
+    blocks under ``{"encoder": {"blocks": ...}}``."""
     flat: Dict[str, torch.Tensor] = {}
     stacks = defaultdict(dict)
     for path, t in named.items():
@@ -183,7 +197,7 @@ def _unstack(tree: Mapping) -> Dict[str, object]:
     """The reference's nested layout -> leaves named as the port's."""
     flat: Dict[str, object] = {}
     for path, a in _leaves(tree):
-        if path.split(".", 1)[0] in STACKED:
+        if _stack_of(path):
             for i, name in enumerate(_unstacked_names(path, a.shape[0])):
                 flat[name] = a[i]
         else:

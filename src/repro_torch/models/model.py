@@ -1,9 +1,10 @@
-"""Language model: a stack of block groups following ``cfg.pattern``, with
-forward logits, the training loss, prefill and one-token decode.
-Counterpart of ``repro/models/model.py`` for the dense, SSM (mamba2) and
-MoE / MLA families: the dense ``prefix`` blocks before the MoE groups
-(``first_dense``) and DeepSeek-V3's multi-token-prediction head (``mtp``)
-are ported with them.
+"""Language model: a stack of block groups following ``cfg.pattern`` (with
+an optional encoder or modality memory), with forward logits, the training
+loss, prefill and one-token decode.  Counterpart of
+``repro/models/model.py``: the dense ``prefix`` blocks before the MoE groups
+(``first_dense``), DeepSeek-V3's multi-token-prediction head (``mtp``) and
+whisper's ``encoder`` (``enc_layers`` bidirectional blocks over the stub
+frontend's frame embeddings) are ported with the blocks.
 
 The reference stores each parameter STACKED over groups and runs them with
 ``lax.scan``; here each group is its own module and a Python loop runs them
@@ -16,15 +17,17 @@ and recomputes attention's batched products and the elementwise work.
 
 Parameters are made with ``requires_grad=False``; ``train.train_step
 .init_state`` turns gradients on, and serving runs under
-``torch.inference_mode()``.  The reference's ``encoder`` raises until its
-family is ported (ROADMAP.md, Queue A); until then the ``memory_embeds``
-argument the encoder and modality families feed is left out of the
-signatures.
+``torch.inference_mode()``.
+
+``memory_embeds`` (B, M, d): the stub frontend's output (audio frames or
+image patches), which the ``cross_attn`` blocks attend to.  An enc-dec model
+runs it through its encoder first, in ``forward`` and, as in the reference,
+again at every ``decode_step``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,13 +69,26 @@ class MTP(nn.Module):
         self.norm_e.fill_(1.0)
 
 
+class Encoder(nn.Module):
+    """Whisper's encoder: ``blocks``, ``enc_layers`` bidirectional
+    ``enc_attn`` blocks, and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(make_block("enc_attn", cfg, device)
+                                    for _ in range(cfg.enc_layers))
+        self.final_norm = empty_param((cfg.d_model,), cfg, device)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, cfg: ModelConfig):
+        for block in self.blocks:
+            block.init(generator, cfg)
+        self.final_norm.fill_(1.0)
+
+
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.enc_layers > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: enc_layers={cfg.enc_layers} is not ported yet "
-                f"(ROADMAP.md Queue A: encoder / cross-attention)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.tok_embed = empty_param((cfg.vocab, cfg.d_model), cfg, dev)
@@ -87,6 +103,8 @@ class LanguageModel(nn.Module):
             self.lm_head = empty_param((cfg.d_model, cfg.vocab), cfg, dev)
         if cfg.mtp_depth > 0:
             self.mtp = MTP(cfg, dev)
+        if cfg.enc_layers > 0:
+            self.encoder = Encoder(cfg, dev)
 
     @property
     def device(self) -> torch.device:
@@ -113,6 +131,8 @@ class LanguageModel(nn.Module):
             block.init(generator, dense_config(cfg))
         if cfg.mtp_depth > 0:
             self.mtp.init(generator, cfg)
+        if cfg.enc_layers > 0:
+            self.encoder.init(generator, cfg)
         return self
 
     # -------------------------------------------------------------- forward
@@ -125,14 +145,14 @@ class LanguageModel(nn.Module):
         head = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
         return (x @ head.to(dtype_of(cfg))) * cfg.logit_scale
 
-    def _group_apply(self, group: nn.ModuleDict, x):
+    def _group_apply(self, group: nn.ModuleDict, x, memory):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in group.values():
-            x, a = block(x, self.cfg)
+            x, a = block(x, self.cfg, memory=memory)
             aux = aux + a
         return x, aux
 
-    def _run_groups(self, x):
+    def _run_groups(self, x, memory=None):
         """-> (x, the summed aux loss of every block)."""
         remat = self.cfg.remat
         if remat not in ("none", *_REMAT_CONTEXTS):
@@ -140,9 +160,9 @@ class LanguageModel(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for group in self.groups:
             if remat == "none" or not torch.is_grad_enabled():
-                x, a = self._group_apply(group, x)
+                x, a = self._group_apply(group, x, memory)
             else:
-                x, a = ckpt.checkpoint(self._group_apply, group, x,
+                x, a = ckpt.checkpoint(self._group_apply, group, x, memory,
                                        use_reentrant=False,
                                        context_fn=_REMAT_CONTEXTS[remat])
             aux = aux + a
@@ -155,31 +175,61 @@ class LanguageModel(nn.Module):
             x, _ = block(x, dense_cfg)
         return x
 
-    def _trunk(self, tokens):
-        """Hidden states before the final norm, and the aux loss."""
-        return self._run_groups(self._run_prefix(self._embed(tokens)))
+    def _encode(self, frame_embeds):
+        """The encoder over the frame embeddings, without remat, as in the
+        reference."""
+        x = frame_embeds.to(dtype_of(self.cfg))
+        for block in self.encoder.blocks:
+            x, _ = block(x, self.cfg)
+        return rmsnorm(x, self.encoder.final_norm, self.cfg.norm_eps)
 
-    def forward(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _memory(self, memory_embeds) -> Optional[torch.Tensor]:
+        """What the cross_attn blocks attend to: the encoder's output for an
+        enc-dec model, else the embeddings as given (in the compute
+        dtype)."""
+        if self.cfg.enc_layers > 0:
+            if memory_embeds is None:
+                raise ValueError(f"{self.cfg.name} is an enc-dec model and "
+                                 f"needs memory_embeds (frames)")
+            return self._encode(memory_embeds)
+        if memory_embeds is None:
+            return None
+        return memory_embeds.to(dtype_of(self.cfg))
+
+    def _trunk(self, tokens, memory=None):
+        """Hidden states before the final norm, and the aux loss."""
+        return self._run_groups(self._run_prefix(self._embed(tokens)),
+                                memory)
+
+    def forward(self, tokens, *, memory_embeds=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """tokens: (B, S) -> (logits (B, S, V), aux_loss scalar)."""
-        x, aux = self._trunk(tokens)
+        x, aux = self._trunk(tokens, self._memory(memory_embeds))
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return self._logits(x), aux
 
     # ----------------------------------------------------------------- loss
     def loss_fn(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
-        """batch: tokens (B,S), labels (B,S) (-100 = ignore) -> (loss,
-        metrics): the mean token cross entropy over valid labels (label >=
-        0), in fp32, plus the blocks' aux loss and, with an MTP head, 0.3 x
-        its loss (metrics "xent", "aux" and "mtp")."""
+        """batch: tokens (B,S), labels (B,S) (-100 = ignore), optional
+        memory_embeds -> (loss, metrics): the mean token cross entropy over
+        valid labels (label >= 0), in fp32, plus the blocks' aux loss and,
+        with an MTP head, 0.3 x its loss (metrics "xent", "aux" and
+        "mtp")."""
         cfg = self.cfg
         trunk = None
+        memory_embeds = batch.get("memory_embeds")
         if cfg.mtp_depth > 0 and cfg.mtp_share_trunk:
-            # compute the trunk once; the head and MTP both read it
-            trunk, aux = self._trunk(batch["tokens"])
+            # compute the trunk once; the head and MTP both read it.  As in
+            # the reference, this branch casts the memory and runs no
+            # encoder (no config has both an MTP head and an encoder).
+            memory = (None if memory_embeds is None
+                      else memory_embeds.to(dtype_of(cfg)))
+            trunk, aux = self._trunk(batch["tokens"], memory)
             logits = self._logits(rmsnorm(trunk, self.final_norm,
                                           cfg.norm_eps))
         else:
-            logits, aux = self.forward(batch["tokens"])
+            logits, aux = self.forward(batch["tokens"],
+                                       memory_embeds=memory_embeds)
         labels = batch["labels"]
         xent = _masked_xent(logits, labels, labels >= 0)
         metrics = {"xent": xent, "aux": aux}
@@ -223,11 +273,14 @@ class LanguageModel(nn.Module):
                                for block in self.prefix]
         return cache
 
-    def decode_step(self, cache: Dict, tokens, pos: int
-                    ) -> Tuple[torch.Tensor, Dict]:
+    def decode_step(self, cache: Dict, tokens, pos: int, *,
+                    memory_embeds=None) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, 1); pos: int -> (logits (B, V), cache).  The cache is
-        updated IN PLACE (the reference returns a new one)."""
+        updated IN PLACE (the reference returns a new one).  An enc-dec
+        model encodes ``memory_embeds`` again at every step, as the
+        reference does."""
         cfg = self.cfg
+        memory = self._memory(memory_embeds)
         x = self._embed(tokens)
         dense_cfg = dense_config(cfg)
         for i, block in enumerate(self.prefix):
@@ -235,17 +288,19 @@ class LanguageModel(nn.Module):
                                                  dense_cfg)
         for group, gcache in zip(self.groups, cache["groups"]):
             for name, block in group.items():
-                x, gcache[name] = block.decode(x, gcache[name], pos, cfg)
+                x, gcache[name] = block.decode(x, gcache[name], pos, cfg,
+                                               memory=memory)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return self._logits(x)[:, 0, :], cache
 
-    def prefill(self, tokens, cache: Dict):
+    def prefill(self, tokens, cache: Dict, *, memory_embeds=None):
         """Sequential prefill through decode_step (exactness over speed;
         ``train.serve_step.make_prefill`` runs ``forward`` instead)."""
         logits = torch.zeros((tokens.shape[0], self.cfg.vocab),
                              dtype=torch.float32, device=tokens.device)
         for t in range(tokens.shape[1]):
-            logits, cache = self.decode_step(cache, tokens[:, t:t + 1], t)
+            logits, cache = self.decode_step(cache, tokens[:, t:t + 1], t,
+                                             memory_embeds=memory_embeds)
         return logits, cache
 
     # ----------------------------------------------------------- analytics

@@ -16,11 +16,17 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.launch import train as ref_train  # noqa: E402
+from repro.models import build as ref_build  # noqa: E402
 from repro.train import checkpoint as ref_ckpt  # noqa: E402
+from repro.train import train_step as ref_train_step  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import generator  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
-from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import build, convert  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import train_step  # noqa: E402
 
 STEP_TOL = {"atol": 2e-5, "rtol": 2e-4}     # tests/test_substrate.py:213-215
 RESUME_TOL = 1e-6                           # tests/test_substrate.py:263
@@ -140,6 +146,10 @@ def test_files_cross_between_packages(tmp_path):
 # resume: N steps of training, a checkpoint at FIRST, the rest resumed
 ARCH = "minicpm-2b"          # tied embeddings, WSD schedule
 MOE_ARCH = "deepseek-v3-671b"
+# whisper-smoke: the encoder's leaves (stacked over enc_layers under
+# encoder/blocks) and the 0-d xgate stacked to (n_groups,); rg-smoke: the
+# RG-LRU's leaves
+NEW_ARCHS = ["whisper-tiny", "recurrentgemma-9b"]
 TRAIN = dict(smoke=True, steps=6, batch=4, seq=32, lr=1e-3, log_every=0,
              ckpt_every=3)
 FIRST = 3
@@ -183,6 +193,12 @@ def test_reference_moe_checkpoint_resumed_by_the_port(tmp_path):
     _reference_to_port(tmp_path, MOE_ARCH)
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_reference_checkpoint_of_the_new_families_resumed_by_the_port(
+        tmp_path, arch):
+    _reference_to_port(tmp_path, arch)
+
+
 def _reference_to_port(tmp_path, arch):
     d = tmp_path / "ref"
     ref_train.train(arch, ckpt_dir=str(d), **dict(TRAIN, steps=FIRST))
@@ -206,6 +222,12 @@ def test_port_checkpoint_resumed_by_the_reference(tmp_path):
 
 def test_port_moe_checkpoint_resumed_by_the_reference(tmp_path):
     _port_to_reference(tmp_path, MOE_ARCH)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_port_checkpoint_of_the_new_families_resumed_by_the_reference(
+        tmp_path, arch):
+    _port_to_reference(tmp_path, arch)
 
 
 def _port_to_reference(tmp_path, arch):
@@ -240,3 +262,37 @@ def test_port_resume_equals_straight_run(tmp_path):
     assert resumed["losses"] == straight["losses"][FIRST:]
     _assert_params_close(_port_params(resumed["state"]),
                          _port_params(straight["state"]), RESUME_TOL)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_bf16_rglru_checkpoint_keeps_lam_fp32(tmp_path, writer):
+    """rg-smoke with bf16 params: the RG-LRU's ``lam`` is an fp32 leaf in
+    both packages' train states.  A state written by one package is stored
+    with lam in fp32 and read back by the other with the same bits."""
+    over = dict(param_dtype="bfloat16", dtype="bfloat16")
+    ref_model = ref_build(ref_get_config("recurrentgemma-9b",
+                                         smoke=True).replace(**over))
+    ref_state = ref_train_step.init_state(ref_model, jax.random.PRNGKey(0))
+    model = build(get_config("recurrentgemma-9b", smoke=True).replace(
+        **over), "cpu")
+    state = train_step.init_state(model, generator(0, "cpu"))
+    path = str(tmp_path / "ckpt_000001")
+    if writer == "reference":
+        ref_ckpt.save(path, ref_state, step=1)
+        tree, _ = ckpt.restore(path, convert.state_to_jax(state))
+        convert.state_from_jax(tree, state)
+        want = np.asarray(ref_state["params"]["groups"]["b0"]["lru"]["lam"])
+        got = convert.state_to_jax(state)["params"]["groups"]["b0"]["lru"][
+            "lam"].numpy()
+    else:
+        ckpt.save(path, convert.state_to_jax(state), step=1)
+        tree, _ = ref_ckpt.restore(path, ref_state)
+        want = convert.state_to_jax(state)["params"]["groups"]["b0"]["lru"][
+            "lam"].numpy()
+        got = np.asarray(tree["params"]["groups"]["b0"]["lru"]["lam"])
+    leaves = ckpt.load_manifest(path)["leaves"]
+    assert leaves["params/groups/b0/lru/lam"]["dtype"] == "float32"
+    assert leaves["params/groups/b0/lru/wx"]["dtype"] == "bfloat16"
+    assert got.dtype == np.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert model.groups[0]["b0"].lru.lam.dtype == torch.float32

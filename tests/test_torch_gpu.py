@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version (the matmul also bit for bit across its tiles), danube-smoke's,
-mamba2-smoke's, qwen3moe-smoke's and dsv3-smoke's forward on the card
-against the same model on the CPU, and the paper's loop (calibrate_device
+mamba2-smoke's, qwen3moe-smoke's, dsv3-smoke's, rg-smoke's, whisper-smoke's
+and vlm-smoke's forward on the card against the same model on the CPU, and the paper's loop (calibrate_device
 and the quick validation suite) on the card.  Every test here is marked
 ``gpu`` and skips without a card; on a card machine run them with
 
@@ -57,6 +57,8 @@ FLASH_TOL = [(torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
     (1024, 256, 16, 1, True, 256),      # recurrentgemma-9b: D=256, MQA, window
     (300, 256, 4, 2, True, 0),          # D=256, causal, a ragged last tile
     (256, 256, 4, 4, False, 0),         # D=256, non-causal
+    (1536, 64, 6, 6, False, 0),         # whisper-tiny's encoder
+    (2048, 128, 64, 8, True, 0),        # llama-3.2-vision: GQA group 8
 ])
 def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
                                       hkv, causal, window):
@@ -193,6 +195,40 @@ def test_moe_smoke_forward_on_card_matches_cpu(cuda_device, arch):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-6,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("recurrentgemma-9b", 1),           # one local_attn block
+    ("whisper-tiny", 4),                # 2 encoder (non-causal) + 2 decoder
+    ("llama-3.2-vision-90b", 5),        # 4 attn + the cross block's self
+])
+def test_memory_and_hybrid_smoke_forward_on_card_matches_cpu(
+        cuda_device, arch, launches):
+    """rg-smoke, whisper-smoke and vlm-smoke with every xgate at 0.5 (0 at
+    init would hide the cross-attention): logits on the card against the
+    CPU, and the kernel's launches (cross-attention reaches none)."""
+    from repro_torch.configs import memory_len
+    from repro_torch.models.blocks import CrossAttnBlock
+    cfg = get_config(arch, smoke=True).replace(use_flash_kernel=True)
+    on_cpu = build(cfg, "cpu").init(generator(0, "cpu"))
+    with torch.no_grad():
+        for m in on_cpu.modules():
+            if isinstance(m, CrossAttnBlock):
+                m.xgate.fill_(0.5)
+    on_card = build(cfg, cuda_device)
+    on_card.load_state_dict(on_cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=generator(1, "cpu"))
+    mlen = memory_len(cfg, 256)
+    mem = None if mlen is None else torch.randn(
+        (2, mlen, cfg.d_model), generator=generator(2, "cpu"))
+    kernel.launches = 0
+    got = serve_step.make_prefill(on_card)(
+        tokens.to(cuda_device), None if mem is None else mem.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernel.launches == launches
+    want = serve_step.make_prefill(on_cpu)(tokens, mem)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 # The SSD kernel against the plain chunked version at the same chunk: the

@@ -222,8 +222,8 @@ def test_generation_reaches_no_kernel(monkeypatch):
     assert out.dtype == torch.int32 and tuple(out.shape) == (2, 4)
     assert bool(((out >= 0) & (out < 128)).all())
 
-    model, prompt = port_serve.setup(ARCH, smoke=True, batch=1,
-                                     prompt_len=32, seed=0, device="cpu")
+    model, prompt, _ = port_serve.setup(ARCH, smoke=True, batch=1,
+                                        prompt_len=32, seed=0, device="cpu")
     model.cfg = model.cfg.replace(use_flash_kernel=True)
     serve_step.make_prefill(model)(prompt)
     assert calls == [(1, 32, 8, 16)] * model.cfg.n_layers

@@ -24,7 +24,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import build as jax_build  # noqa: E402
 from repro.train import serve_step as jax_serve_step  # noqa: E402
 from repro_torch import device as port_device  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, memory_len  # noqa: E402,E501
 from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.models import LanguageModel, build  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -176,13 +176,25 @@ def test_init_follows_reference_distributions():
     assert torch.equal(model.lm_head, again.lm_head)
 
 
-@pytest.mark.parametrize("arch,kind", [
-    ("llama-3.2-vision-90b", "cross_attn"), ("recurrentgemma-9b", "rglru"),
-    ("whisper-tiny", "enc_layers"),
-])
-def test_unported_families_raise_naming_the_roadmap(arch, kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LanguageModel(get_config(arch, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_builds_in_the_port(arch):
+    """The full config on the meta device (no memory) holds exactly the
+    parameters the config counts; the smoke config builds on the CPU and
+    serves finite logits, with the stub frontend's memory where the family
+    takes one."""
+    full = get_config(arch)
+    assert LanguageModel(full, device="meta").param_count() == \
+        full.param_count()
+    cfg = get_config(arch, smoke=True)
+    model = build(cfg, "cpu").init(port_device.generator(0, "cpu"))
+    assert model.param_count() == cfg.param_count()
+    mlen = memory_len(cfg, 16)
+    memory = None if mlen is None else torch.randn(2, max(mlen, 4),
+                                                   cfg.d_model)
+    last = serve_step.make_prefill(model)(torch.from_numpy(_tokens(2, 16)),
+                                          memory)
+    assert tuple(last.shape) == (2, cfg.vocab)
+    assert bool(torch.isfinite(last).all())
 
 
 def test_serve_runs_on_cpu_when_asked(capsys):

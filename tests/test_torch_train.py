@@ -45,7 +45,9 @@ from repro_torch.train import train_step  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MOE_ARCHS = ["qwen3-moe-235b-a22b", "deepseek-v3-671b"]
-ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "mamba2-1.3b"] + MOE_ARCHS
+MEMORY_ARCHS = ["whisper-tiny", "llama-3.2-vision-90b"]
+ARCHS = (["h2o-danube-1.8b", "minicpm-2b", "mamba2-1.3b"] + MOE_ARCHS
+         + ["recurrentgemma-9b"] + MEMORY_ARCHS)
 GRAD_TOL = {"atol": 1e-5, "rtol": 1e-5}
 STEP_TOL = {"atol": 2e-5, "rtol": 2e-4}     # tests/test_substrate.py:213-215
 BATCH, SEQ, STEPS = 4, 32, 5
