@@ -5,7 +5,9 @@ plain versions, serves h2o-danube-1.8b, mamba2-1.3b, qwen3-moe-235b-a22b,
 deepseek-v3-671b, recurrentgemma-9b, whisper-tiny and llama-3.2-vision-90b
 at full width (the MoE and vision models with their depth cut to fit the
 card), runs the paper's loop (microbenchmark -> calibrate -> predict ->
-validate) on the card, and trains h2o-danube-1.8b at full width and depth.
+validate) on the card, trains h2o-danube-1.8b at full width and depth, and
+trains with int8 Adam moments at full width: danube, recurrentgemma-9b
+whole, and qwen3-moe and llama-3.2-vision with their depth cut.
 
     python3 chip_smoke.py
 
@@ -78,7 +80,10 @@ non-zero and prints no result):
                both transports); each served pick is launched through the
                kernel (6 matmul launches), held to the plain version and to
                the tiles phase's bits.  The server's processes hold none of
-               the card's device files open (no CUDA context).  Host-clock
+               the card's device files open (no CUDA context); once
+               started they do not map the driver library (importing the
+               server loads no torch; its start is printed beside
+               SERVER_START_TORCH_S, its start when it did).  Host-clock
                latencies (argmin over each transport, a 102,400-row
                lattice with the pool's start) are printed, not gated.
 4. prefill   - each model's main path: ``make_prefill`` at full width
@@ -109,6 +114,9 @@ non-zero and prints no result):
                attention softcap (recurrentgemma-9b's 30), as the
                reference's does, so the plain path it is held to runs at
                softcap 0; the softcap's own effect is printed.
+               llama-3.2-vision's bf16 gap is traced (VISION_TRACE: one
+               attn block, one cross_attn block, depths 5 and 20, every
+               xgate at 0 and at XGATE), printed, not gated.
 5. generate  - ``launch.serve.serve`` (batch 4, prompt 256, 32 new tokens)
                for each model (``greedy_generate`` on the depth-cut config
                for the MoE and vision models; the audio and vision models
@@ -146,7 +154,31 @@ non-zero and prints no result):
                three below the first three).  No kernel is launched in the
                phase: the model trains on its plain paths, as the
                reference does.
-7. result    - the script's seconds; one JSON line listing every kernel
+7. train_q8  - int8 Adam moments (``optim/quantized_moments``), no kernel
+               launched on any of its paths: (a) three chained
+               ``q8nd_adamw_update`` steps at danube-smoke and vlm-smoke
+               (gates at XGATE) on the CPU, each also run on the card from
+               the CPU's state (codes differing by at most 1, in at most
+               Q8_CODE_SHARE of them; params at Q8_STEP_PARAMS_TOL), and
+               a free-running chain on the card (share gated, its largest
+               code difference printed, params at Q8_PARAMS_TOL); (b)
+               h2o-danube-1.8b as the train phase's (b), with
+               ``init_state(moment_dtype="int8")`` and
+               ``make_train_step(q8_moments=True)`` in the launcher's loop,
+               beside the bf16-moment record (DANUBE_BF16_MOMENTS) and the
+               memory the moments should save, printed before the run;
+               losses falling, moments int8; (c) recurrentgemma-9b whole,
+               qwen3-moe-235b-a22b (3 of 94 layers), llama-3.2-vision-90b
+               (10 of 100) and whisper-tiny whole at full width, batch 1,
+               S=2048 (whisper 1536 against 1536 frames), 3 steps at lr
+               1e-3: each model's parameter count, its state reckoned
+               (``state_bytes``), the memory it holds, its peak, each
+               step's ms and loss, losses and grad norms finite; a model
+               that runs out of memory runs at its next depth
+               (Q8_MODELS), the miss printed; (d) deepseek-v3: one MoE
+               layer with its embedding and head, counted on the meta
+               device, over the card; not run.
+8. result    - the script's seconds; one JSON line listing every kernel
                (a kernel's launches: the sum over the main paths' counted
                runs, each path's count under launches_by_path), then the
                last line
@@ -158,6 +190,7 @@ card is a full fp32 product.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -174,6 +207,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # than in a pool of worker processes, so the script leaves none behind.
 os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config, memory_len  # noqa: E402
@@ -196,7 +230,11 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.blocks import CrossAttnBlock  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
-    jax_layout, params_from_jax, params_to_jax)
+    jax_layout, params_from_jax, params_to_jax, state_from_jax,
+    state_to_jax)
+from repro_torch.optim.quantized_moments import (  # noqa: E402
+    moment_bytes_per_param, q8nd_adamw_update)
+from repro_torch.optim.schedule import for_arch  # noqa: E402
 from repro_torch.train.serve_step import (  # noqa: E402
     greedy_generate, make_prefill)
 from repro_torch.train.train_step import (  # noqa: E402
@@ -1255,6 +1293,10 @@ def tile_selection(measured_hw, entries: dict) -> dict:
 # Every client call of the phase has this deadline: a wedged server fails
 # the run instead of hanging it.
 SERVE_DEADLINE_S = 120.0
+# The server's start to its banner, measured by this phase on an H100 80GB
+# HBM3 at 700 W when importing the server still loaded torch (through the
+# eager ``core.microbench``); printed beside this run's.
+SERVER_START_TORCH_S = 13.988
 SERVE_SMALL_REQUESTS = 200      # argmin requests timed over each transport
 # ~100k rows: a (flops, bytes) grid over a bf16 GEMM, priced by the server
 # as a streamed lattice plan.
@@ -1323,7 +1365,6 @@ def predict_serve(measured_hw, suite, tile_runs: dict, entries: dict) -> None:
     binary transport; each served pick is launched through the
     hand-written kernel.  The server prices with numpy and must hold no
     CUDA context.  Host-clock latencies are printed, not gated."""
-    import numpy as np
     from repro_torch.core import calibrate, sweep
     from repro_torch.core.workload import (LatticeSpec, TileConfig,
                                            WorkloadTable, gemm_workload)
@@ -1345,9 +1386,18 @@ def predict_serve(measured_hw, suite, tile_runs: dict, entries: dict) -> None:
                                   binary_port=bport)
         clients = [http, binary]
         health = http.health(**dl)
+        # Importing the server loads no torch, so none of its processes
+        # maps the driver library yet.  (Decoding a measured suite, at the
+        # calibration request below, imports ``core.microbench`` and so
+        # torch, as the reference's server imports jax there.)
+        libcuda = {p: maps_libcuda(p) for p in session_pids(proc.pid)}
         phase("predict_serve", server_pid=proc.pid, http=f"{host}:{port}",
               binary=f"{host}:{bport}", start_to_banner_s=f"{start_s:.3f}",
-              jobs=2, status=health["status"])
+              start_to_banner_s_when_it_imported_torch=SERVER_START_TORCH_S,
+              jobs=2, status=health["status"], libcuda_mapped=libcuda)
+        if any(libcuda.values()):
+            raise AssertionError(f"the started server maps the CUDA driver "
+                                 f"library (torch loaded): {libcuda}")
 
         # 1. the measured parameters, registered and read back
         http.hardware_register(measured_hw, overwrite=True, **dl)
@@ -1699,6 +1749,48 @@ def prefill_requests(arch: str, entries: dict) -> None:
           **moe_fields(cfg, seq), **drops)
     del model, prefill, logits_k, logits_p
     torch.cuda.empty_cache()
+    if arch == VISION:
+        vision_bf16_trace(tokens, memory)
+
+
+# llama-3.2-vision's bf16 gap, kernel path against plain, traced before it
+# is called rounding: one attn block alone, one cross_attn block alone, one
+# group (four attn and a cross_attn block) and four groups, each with every
+# xgate at 0 and at XGATE.  If the gap grew with the cross blocks or their
+# gates, the cross block would be at fault.
+VISION_TRACE = ((("attn",), 1), (("cross_attn",), 1), (None, 5), (None, 20))
+
+
+def vision_bf16_trace(tokens, memory) -> None:
+    """Printed, not gated; no launch count is read (the main path's run is
+    the bf16 request above)."""
+    base = get_config(VISION).replace(use_flash_kernel=True)
+    for pattern, n in VISION_TRACE:
+        cfg = base.replace(n_layers=n, **({"pattern": pattern}
+                                          if pattern else {}))
+        model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+        prefill = make_prefill(model)
+        gates = [m.xgate for m in model.modules()
+                 if isinstance(m, CrossAttnBlock)]
+        gaps, absmax = {}, 0.0
+        for gate in ((0.0, XGATE) if gates else (None,)):
+            with torch.no_grad():
+                for g in gates:
+                    g.fill_(gate)
+            model.cfg = cfg
+            logits_k = prefill(tokens, memory)
+            model.cfg = plain(cfg)
+            logits_p = prefill(tokens, memory)
+            err = max_abs_err("vision trace", logits_k, logits_p)
+            gaps[gate] = f"{err:.3e}"
+            absmax = max(absmax, logits_p.float().abs().max().item())
+            del logits_k, logits_p
+        phase("prefill", arch=VISION, trace="bf16 kernel vs plain",
+              pattern="+".join(cfg.pattern), depth=n,
+              cross_blocks=len(gates), gap_by_xgate=gaps,
+              logits_absmax=f"{absmax:.3f}")
+        del model, prefill, gates
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 5
@@ -2039,6 +2131,257 @@ def train_full() -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 7
+
+# (a) int8-moment updates, the card against the CPU: three chained
+# ``q8nd_adamw_update`` steps from one numpy parameter tree and one zero
+# state, given the same numpy gradients.  Given the same state, the codes
+# of a step may differ where the card's logf / expf and the CPU's differ by
+# an ulp at a rounding boundary (or the global norms' sums, in another
+# order, move the clip factor by an ulp): by 1, in at most Q8_CODE_SHARE of
+# them.  So each step is also run on the card from the CPU's state, and
+# held to that; run free, a code that parted carries its difference into
+# the next steps (a free run's largest difference is printed).  One code
+# step of v moves that element's update by a few percent of lr (a step of
+# a block's log range of ~10-30 over 255 codes, halved by the square root):
+# the params are held to a tenth of lr a step.
+Q8_CHECK_STEPS, Q8_CHECK_LR = 3, 1e-3
+Q8_CODE_SHARE = 1e-4
+Q8_STEP_PARAMS_TOL = {"atol": 1e-4, "rtol": 0.0}
+Q8_PARAMS_TOL = {"atol": 3e-4, "rtol": 0.0}
+# (b) danube as the train phase's (b) runs it, with int8 moments; the record
+# it is set beside: bf16 moments, measured by the train phase on an H100
+# 80GB HBM3 at 700 W.
+DANUBE_BF16_MOMENTS = {"step_ms_median_2_to_10": 2789.793,
+                       "max_memory_allocated_gb": 46.6}
+# (c) the other families at full width with int8 moments, batch 1, 3 steps
+# at lr 1e-3 (the launcher's schedule); each model's depths, the first that
+# fits is run: recurrentgemma-9b whole (its int8 state ~52 GB; bf16 moments
+# would need ~69 GB before activations), qwen3-moe 3 of 94 layers (~53 GB),
+# llama-3.2-vision 10 of 100 (two cross blocks, ~65 GB), whisper-tiny whole.
+# whisper runs 1536 tokens against 1536 frames, as its prefill does.
+Q8_STEPS, Q8_LR = 3, 1e-3
+Q8_MODELS = {RG: (2048, ({}, {"n_layers": 19})),
+             QWEN3: (2048, ({"n_layers": 3}, {"n_layers": 2})),
+             VISION: (2048, ({"n_layers": 10}, {"n_layers": 5})),
+             WHISPER: (1536, ({},))}
+
+
+def code_diffs(got: dict, want: dict) -> dict:
+    """Two int8-moment optimizer states in the reference layout: the codes,
+    how many differ and by how much at most, and the scales' largest
+    relative difference."""
+    n = differ = most = 0
+    scale_rel = 0.0
+    got, want = dict(_flat(got)), dict(_flat(want))
+    for name, w in want.items():
+        g = got[name]
+        if w.dtype == torch.int8:
+            d = (g.int() - w.int()).abs()
+            n, differ = n + d.numel(), differ + int((d > 0).sum())
+            most = max(most, int(d.max()))
+        elif w.dim():
+            rel = ((g - w).abs() / w.abs().clamp(min=1e-30)).max().item()
+            scale_rel = max(scale_rel, rel)
+    return {"codes": n, "differing": differ, "max_diff": most,
+            "scales_max_rel_diff": scale_rel}
+
+
+def q8_card_vs_cpu(arch: str) -> None:
+    smoke = get_config(arch, smoke=True)
+    model = build(smoke, "cpu").init(generator(SEED, "cpu"))
+    live_xgates(model)
+    tree = params_to_jax(model)
+    rng = np.random.default_rng(SEED + 3)
+    grads = [{k: np.asarray(rng.standard_normal(p.shape) * 0.1, np.float32)
+              for k, p in model.named_parameters()}
+             for _ in range(Q8_CHECK_STEPS)]
+    del model
+    states = {name: init_state(params_from_jax(tree, smoke, device=dev),
+                               moment_dtype="int8")
+              for name, dev in (("cpu", "cpu"), ("card", "cuda"),
+                                ("free", "cuda"))}
+    for i, g in enumerate(grads):
+        state_from_jax(state_to_jax(states["cpu"]), states["card"])
+        for name, st in states.items():
+            dev = st["opt"]["step"].device
+            q8nd_adamw_update(
+                st["params"],
+                {k: torch.from_numpy(v).to(dev) for k, v in g.items()},
+                st["opt"], lr=Q8_CHECK_LR)
+        cpu, card = (state_to_jax(states[k]) for k in ("cpu", "card"))
+        diffs = code_diffs(card["opt"], cpu["opt"])
+        err = trees_close(f"{arch} q8 step {i + 1} card vs cpu params",
+                          card["params"], cpu["params"], Q8_STEP_PARAMS_TOL)
+        phase("train_q8", check="card_vs_cpu, each step from the cpu's "
+              "state", config=smoke.name, step=i + 1, **diffs,
+              share=f"{diffs['differing'] / diffs['codes']:.3e}",
+              params_max_abs_err=f"{err:.3e}", tol=Q8_STEP_PARAMS_TOL,
+              code_gate=f"share <= {Q8_CODE_SHARE}, diff <= 1")
+        if diffs["max_diff"] > 1 \
+                or diffs["differing"] > Q8_CODE_SHARE * diffs["codes"]:
+            raise AssertionError(f"{smoke.name} step {i + 1}: {diffs}")
+    free = state_to_jax(states["free"])
+    diffs = code_diffs(free["opt"], cpu["opt"])
+    err = trees_close(f"{arch} q8 free-running card vs cpu params",
+                      free["params"], cpu["params"], Q8_PARAMS_TOL)
+    phase("train_q8", check="card_vs_cpu, free-running", config=smoke.name,
+          steps=Q8_CHECK_STEPS, **diffs,
+          share=f"{diffs['differing'] / diffs['codes']:.3e}",
+          params_max_abs_err=f"{err:.3e}", tol=Q8_PARAMS_TOL,
+          code_gate=f"share <= {Q8_CODE_SHARE}")
+    if diffs["differing"] > Q8_CODE_SHARE * diffs["codes"]:
+        raise AssertionError(f"{smoke.name} free-running: {diffs}")
+
+
+def state_bytes(model) -> int:
+    """Params and grads in their dtypes, int8 moments at
+    ``moment_bytes_per_param``: the state an int8-moment step holds before
+    any activation."""
+    return sum(p.numel() * (2 * p.element_size() + moment_bytes_per_param())
+               for p in model.parameters())
+
+
+def q8_train(arch: str, cfg, *, steps: int, batch: int, seq: int,
+             lr: float) -> dict:
+    """``steps`` int8-moment steps of ``cfg`` on the card, the launcher's
+    loop (its schedule, data and seed) with ``init_state(moment_dtype=
+    "int8")`` and ``make_train_step(q8_moments=True)``; every launch count
+    read around them and held at 0.  Prints each step; returns the
+    numbers."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    predicted = state_bytes(model)
+    phase("train_q8", arch=arch, depth=repr(depth(cfg)), params=n_params,
+          predicted_state_gb=f"{predicted / 1e9:.2f}")
+    state = init_state(model, generator(SEED, "cuda"), moment_dtype="int8")
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    step_fn = make_train_step(model, q8_moments=True, lr=for_arch(
+        arch, lr, max(steps // 20, 5), steps))
+    data = SyntheticLMData(cfg, batch=batch, seq_len=seq, seed=SEED)
+    hist = []
+    reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(i).items()}
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "lr": float(m["lr"]),
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        phase("train_q8", arch=arch, step=i + 1,
+              loss=f"{hist[-1]['loss']:.6f}",
+              grad_norm=f"{hist[-1]['grad_norm']:.6f}",
+              lr=f"{hist[-1]['lr']:.3e}", ms=f"{hist[-1]['ms']:.3f}")
+    launches = read_launches()
+    check_launches(f"{arch} int8-moment training", launches,
+                   {name: 0 for name in KERNELS})
+    dtypes = {m["q"].dtype for m in state["opt"]["mu"].values()
+              if "scale" in m}
+    if dtypes != {torch.int8}:
+        raise AssertionError(f"{arch}: moments are {dtypes}, not int8")
+    values = [h["loss"] for h in hist] + [h["grad_norm"] for h in hist]
+    if not all(map(math.isfinite, values)):
+        raise AssertionError(f"{arch}: non-finite losses or grad norms "
+                             f"{values}")
+    out = {"params": n_params, "predicted_state_gb": predicted / 1e9,
+           "state_held_gb": held_gb, "hist": hist,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_q8() -> None:
+    """(a) the int8-moment update, card against CPU, at danube-smoke and
+    vlm-smoke; (b) danube at full width and depth as the train phase's (b),
+    with int8 moments; (c) recurrentgemma-9b, qwen3-moe, llama-3.2-vision
+    and whisper-tiny at full width with int8 moments, each at the first of
+    its depths that fits; (d) deepseek-v3's reckoning, not run."""
+    t0 = time.perf_counter()
+    reset_launches()
+    for arch in (DANUBE, VISION):
+        q8_card_vs_cpu(arch)
+    check_launches("int8-moment updates", read_launches(),
+                   {name: 0 for name in KERNELS})
+
+    cfg = get_config(DANUBE)
+    n = sum(p.numel() for p in build(cfg, "meta").parameters())
+    saved = n * (4 - moment_bytes_per_param()) / 1e9
+    peak = DANUBE_BF16_MOMENTS["max_memory_allocated_gb"] - saved
+    phase("train_q8", arch=DANUBE, prediction="before the run",
+          moment_memory_saved_gb=f"{saved:.2f}",
+          peak_gb_predicted=f"{peak:.1f}",
+          step_ms_predicted="2850-2950 (+2-6 %)")
+    out = q8_train(DANUBE, cfg, steps=FULL_STEPS, batch=FULL_BATCH,
+                   seq=FULL_SEQ, lr=FULL_LR)
+    hist = out["hist"]
+    losses = [h["loss"] for h in hist]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not last < first:
+        raise AssertionError(f"int8 moments: loss did not fall: first "
+                             f"three {first:.4f}, last three {last:.4f}")
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    phase("train_q8", arch=DANUBE, batch=FULL_BATCH, seq=FULL_SEQ,
+          steps=FULL_STEPS, moments="int8",
+          step_ms_median_2_to_10=f"{step_ms:.3f}",
+          step_ms_range=f"{min(h['ms'] for h in hist[1:]):.3f}-"
+                        f"{max(h['ms'] for h in hist[1:]):.3f}",
+          max_memory_allocated_gb=round(out["peak_gb"], 2),
+          state_held_gb=round(out["state_held_gb"], 2),
+          loss_first3=f"{first:.4f}", loss_last3=f"{last:.4f}",
+          bf16_moments=DANUBE_BF16_MOMENTS, launches=out["launches"])
+
+    for arch, (seq, cuts) in Q8_MODELS.items():
+        for i, cut in enumerate(cuts):
+            cfg = get_config(arch).replace(**cut)
+            out = None
+            try:
+                out = q8_train(arch, cfg, steps=Q8_STEPS, batch=1, seq=seq,
+                               lr=Q8_LR)
+            except torch.cuda.OutOfMemoryError:
+                if i + 1 == len(cuts):
+                    raise
+            if out is None:         # the failed run's tensors freed first
+                gc.collect()
+                torch.cuda.empty_cache()
+                phase("train_q8", arch=arch, depth=repr(depth(cfg)),
+                      out_of_memory=True, next_depth=repr(depth(
+                          get_config(arch).replace(**cuts[i + 1]))))
+                continue
+            phase("train_q8", arch=arch, depth=repr(depth(cfg)), batch=1,
+                  seq=seq, params=out["params"],
+                  predicted_state_gb=f"{out['predicted_state_gb']:.2f}",
+                  state_held_gb=round(out["state_held_gb"], 2),
+                  max_memory_allocated_gb=round(out["peak_gb"], 2),
+                  step_ms=[round(h["ms"], 3) for h in out["hist"]],
+                  losses=[round(h["loss"], 6) for h in out["hist"]],
+                  launches=out["launches"])
+            break
+
+    # (d) one deepseek-v3 MoE layer with its embedding and head, counted on
+    # the meta device: over the card before any activation.
+    cfg = get_config(DSV3).replace(n_layers=1, first_dense=0, mtp_depth=0)
+    meta = dict(build(cfg, "meta").named_parameters())
+    layer = sum(p.numel() for k, p in meta.items() if k.startswith("groups."))
+    rest = sum(p.numel() for k, p in meta.items()
+               if not k.startswith("groups."))
+    per_param = 2 + 2 + moment_bytes_per_param()
+    phase("train_q8", arch=DSV3, run=False, moe_layer_params=layer,
+          embed_head_params=rest, bytes_per_param=f"{per_param:.3f}",
+          moe_layer_gb=f"{layer * per_param / 1e9:.1f}",
+          with_embed_head_gb=f"{(layer + rest) * per_param / 1e9:.1f}",
+          card_gb=round(torch.cuda.get_device_properties(0).total_memory
+                        / 1e9, 1))
+    phase("train_q8", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2066,6 +2409,7 @@ def main() -> int:
     train_full()
     check_launches("the train phase", read_launches(),
                    {name: 0 for name in KERNELS})
+    train_q8()
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,4 +11,3 @@ Entry points run on the CUDA card unless the caller passes ``device="cpu"``
 kernel written by hand for Hopper, under ``csrc/``, with its plain PyTorch
 version beside it in ``kernels/<name>/ref.py``.
 """
-from .device import resolve_device  # noqa: F401

@@ -35,11 +35,22 @@ on the card passes ``hw`` (``kernels/matmul/ops.select_blocks`` does).
 MI300A, H200 and MI250X; no number in it was measured on this card.
 """
 from . import (autotune, blackwell, cache, calibrate, cdna3, collectives,
-               generic, hardware, microbench, parallel, predict, roofline,
-               segments, sweep, tpu, validate, workload)
+               generic, hardware, parallel, predict, roofline, segments,
+               sweep, tpu, validate, workload)
 
 __all__ = [
     "autotune", "blackwell", "cache", "calibrate", "cdna3", "collectives",
     "generic", "hardware", "microbench", "parallel", "predict", "roofline",
     "segments", "sweep", "tpu", "validate", "workload",
 ]
+
+
+def __getattr__(name):
+    # microbench imports torch; keep it lazy so pure-model users (the
+    # prediction server) stay light.
+    if name == "microbench":
+        import importlib
+        mod = importlib.import_module(".microbench", __name__)
+        globals()["microbench"] = mod
+        return mod
+    raise AttributeError(name)

@@ -213,9 +213,10 @@ def _mp_context(allow_fork: bool = True):
     methods = multiprocessing.get_all_start_methods()
     # The reference's condition names "jax".  In the port the hazard is
     # torch: it starts its intra-op thread pool when imported, and a forked
-    # child cannot use the parent's CUDA context.  In the port this refuses
-    # fork always: importing this module runs core/__init__, which imports
-    # microbench and so torch.  Every pool is a forkserver (or spawn).
+    # child cannot use the parent's CUDA context.  A process that has not
+    # loaded torch may fork (core/__init__ loads microbench, and so torch,
+    # only on first use); once torch is loaded, a pool is a forkserver (or
+    # spawn).
     if allow_fork and "fork" in methods and "torch" not in sys.modules \
             and threading.active_count() <= 1:
         return multiprocessing.get_context("fork")   # COW, no re-import

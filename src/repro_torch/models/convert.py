@@ -16,7 +16,11 @@ the mapping is by path.  A train state
 (``train.train_step.init_state``) holds named tensors in the port's names:
 ``params``, the optimizer's ``mu`` / ``nu`` and, with compressed gradients,
 ``residuals``; each maps the same way, and the optimizer's ``step`` as it
-is.
+is.  Int8 moments (``optim.quantized_moments.q8nd_init``) are a dict
+``{"q", "scale"}`` for each parameter, whose two tensors stack over the
+groups as a parameter does (``opt/mu/groups/b0/attn/wq/q``); the moments of
+a per-group 0-d parameter are held already stacked, under the reference's
+leaf path (``groups.b0.xgate``), and cross as they are.
 """
 from __future__ import annotations
 
@@ -130,6 +134,14 @@ def _nest(flat: Mapping[str, object]) -> Dict:
     return tree
 
 
+def _is_stacked_leaf(path: str) -> bool:
+    """A reference leaf path in a stacked part (``groups.b0.xgate``), as
+    against a port name there (``groups.3.b0.xgate``)."""
+    head = _stack_of(path)
+    return head is not None and \
+        not path[len(head) + 1:].split(".", 1)[0].isdigit()
+
+
 def jax_layout(named: Mapping[str, torch.Tensor]) -> Dict:
     """Tensors named as the port's parameters (``groups.<g>.b0.attn.wq``, a
     model's ``named_parameters`` or state dict, its gradients or moments) ->
@@ -137,11 +149,12 @@ def jax_layout(named: Mapping[str, torch.Tensor]) -> Dict:
     (``{"groups": {"b0": {"attn": {"wq": (n_groups, ...)}}}}``) and prefix
     leaves over the prefix blocks.  Leaves are CPU copies, detached, in
     their own dtype.  Encoder block leaves are stacked over the encoder's
-    blocks under ``{"encoder": {"blocks": ...}}``."""
+    blocks under ``{"encoder": {"blocks": ...}}``.  A tensor named by a
+    stacked leaf's own path (``groups.b0.xgate.q``) is that leaf already."""
     flat: Dict[str, torch.Tensor] = {}
     stacks = defaultdict(dict)
     for path, t in named.items():
-        stacked = split_stacked(path)
+        stacked = None if _is_stacked_leaf(path) else split_stacked(path)
         if stacked:
             stacks[stacked[0]][stacked[1]] = t.detach()
         else:
@@ -177,6 +190,18 @@ def _map_leaves(tree: Mapping, fn) -> Dict:
             for k, v in tree.items()}
 
 
+def _named_moments(moments: Mapping) -> Dict[str, torch.Tensor]:
+    """A state's ``mu`` or ``nu`` as named tensors: int8 moments' ``q`` and
+    ``scale`` under ``<name>.q`` and ``<name>.scale``."""
+    named = {}
+    for name, m in moments.items():
+        if isinstance(m, Mapping):
+            named.update((f"{name}.{part}", t) for part, t in m.items())
+        else:
+            named[name] = m
+    return named
+
+
 def state_to_jax(state: Mapping) -> Dict:
     """A port train state -> the reference's train-state pytree
     (``repro/train/train_step.py:init_state``): ``params``, ``opt`` (``mu``,
@@ -186,18 +211,21 @@ def state_to_jax(state: Mapping) -> Dict:
     (``params/groups/b0/attn/wq``, ``opt/step``)."""
     opt = state["opt"]
     tree = {"params": jax_layout(state["params"]),
-            "opt": {"mu": jax_layout(opt["mu"]), "nu": jax_layout(opt["nu"]),
+            "opt": {"mu": jax_layout(_named_moments(opt["mu"])),
+                    "nu": jax_layout(_named_moments(opt["nu"])),
                     "step": opt["step"].detach().to("cpu", copy=True)}}
     if "residuals" in state:
         tree["residuals"] = jax_layout(state["residuals"])
     return tree
 
 
-def _unstack(tree: Mapping) -> Dict[str, object]:
-    """The reference's nested layout -> leaves named as the port's."""
+def _unstack(tree: Mapping, whole=frozenset()) -> Dict[str, object]:
+    """The reference's nested layout -> leaves named as the port's; the
+    stacked leaves in ``whole`` (the int8 moments of a per-group 0-d
+    parameter, which the port holds stacked) keep their path."""
     flat: Dict[str, object] = {}
     for path, a in _leaves(tree):
-        if _stack_of(path):
+        if _stack_of(path) and path not in whole:
             for i, name in enumerate(_unstacked_names(path, a.shape[0])):
                 flat[name] = a[i]
         else:
@@ -213,12 +241,12 @@ def state_from_jax(tree: Mapping, state: Dict) -> Dict:
     tensor it fills; returns ``state``.  Both must hold the same leaves:
     a missing or extra leaf, or a shape that differs, raises."""
     pairs = [(tree["params"], state["params"]),
-             (tree["opt"]["mu"], state["opt"]["mu"]),
-             (tree["opt"]["nu"], state["opt"]["nu"])]
+             (tree["opt"]["mu"], _named_moments(state["opt"]["mu"])),
+             (tree["opt"]["nu"], _named_moments(state["opt"]["nu"]))]
     if "residuals" in state:
         pairs.append((tree["residuals"], state["residuals"]))
     for sub, named in pairs:
-        flat = _unstack(sub)
+        flat = _unstack(sub, {n for n in named if _is_stacked_leaf(n)})
         if set(flat) != set(named):
             raise KeyError(f"leaves differ: only in the tree "
                            f"{sorted(set(flat) - set(named))}, only in the "

@@ -31,13 +31,34 @@ def adamw_init(params: Mapping[str, torch.Tensor], *,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+# a leaf above this many elements is squared and summed in slices of it, so
+# that its fp32 copy is one slice's (a 1e9-element embedding's would be
+# 4.2 GB, twice over)
+NORM_SLICE = 1 << 26
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    if g.numel() <= NORM_SLICE:
+        return torch.sum(torch.square(g.float()))
+    flat = g.reshape(-1)
+    return sum(torch.sum(torch.square(flat[i:i + NORM_SLICE].float()))
+               for i in range(0, flat.numel(), NORM_SLICE))
+
+
+def global_norm_scale(grads: Mapping[str, torch.Tensor], max_norm: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the global norm of ``grads``, the factor that scales them to a norm
+    of at most ``max_norm``).  In fp32, leaves summed in order."""
+    gnorm = torch.sqrt(sum(_square_sum(g) for g in grads.values()))
+    return gnorm, torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12),
+                              max=1.0)
+
+
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
                         ) -> Tuple[Dict, torch.Tensor]:
     """(grads scaled to a global norm of at most ``max_norm``, the global
-    norm before scaling).  Norm and scale in fp32, leaves summed in order."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in grads.values()))
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    norm before scaling)."""
+    gnorm, scale = global_norm_scale(grads, max_norm)
     return ({k: (g.float() * scale).to(g.dtype) for k, g in grads.items()},
             gnorm)
 

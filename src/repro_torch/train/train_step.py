@@ -3,7 +3,8 @@ compression) -> AdamW, with gradient-accumulation microbatching.
 
 Counterpart of ``repro/train/train_step.py``.  The state is a plain dict:
 ``params`` (the model's named parameters, the same tensor objects, so an
-update changes the model), ``opt`` (``optim.adamw_init``) and, with
+update changes the model), ``opt`` (``optim.adamw_init``, or with int8
+moments ``optim.quantized_moments.q8nd_init``) and, with
 compressed gradients, ``residuals``.  The reference's step is a pure
 function for ``jax.jit``; here it runs eagerly and updates the state in
 place, returning it in the reference's ``(state, metrics)`` shape.
@@ -21,6 +22,7 @@ from ..models.convert import split_stacked
 from ..optim import adamw_update, error_feedback_update
 from ..optim.adamw import adamw_init
 from ..optim.grad_compression import init_residuals
+from ..optim.quantized_moments import q8nd_adamw_update, q8nd_init
 
 # Second-moment floor (optax-style eps_root, inside the sqrt) used by the
 # train substrate: sqrt(1e-8) = 1e-4 bounds the first-step update's
@@ -28,9 +30,6 @@ from ..optim.grad_compression import init_residuals
 # match full-batch steps instead of amplifying round-off through Adam's
 # sign(g)-like cold-start update.
 EPS_ROOT = 1e-8
-
-_Q8_MOMENTS = ("block-quantized int8 Adam moments (optim.quantized_moments) "
-               "are not ported yet (ROADMAP.md Queue A item 9)")
 
 
 def _compress(grads: Mapping[str, torch.Tensor],
@@ -64,16 +63,19 @@ def init_state(model: LanguageModel,
     holds, e.g. loaded by ``convert.params_from_jax``), turn gradients on
     for them, and return the train state.
 
-    moment_dtype: None (the parameters' dtype), "float32" or "bfloat16";
-    the reference's "int8" is not ported yet."""
-    if moment_dtype == "int8":
-        raise NotImplementedError(_Q8_MOMENTS)
+    moment_dtype: None (the parameters' dtype), "float32", "bfloat16", or
+    "int8" (block-quantized 8-bit-Adam moments in the shape-preserving
+    layout, ``optim.quantized_moments``; a per-group 0-d parameter's
+    moments are quantized over its stacked leaf, as the reference's)."""
     if generator is not None:
         model.init(generator)
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    state = {"params": params,
-             "opt": adamw_init(params, moment_dtype=moment_dtype)}
+    if moment_dtype == "int8":
+        opt = q8nd_init(params)
+    else:
+        opt = adamw_init(params, moment_dtype=moment_dtype)
+    state = {"params": params, "opt": opt}
     if compress_grads:
         state["residuals"] = init_residuals(params)
     return state
@@ -89,9 +91,10 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
 
     batch: tensors on the model's device, ``tokens`` and ``labels`` (B, S).
     accum_dtype: gradient-accumulation buffer dtype (bf16 halves the
-    accumulator memory)."""
-    if q8_moments:
-        raise NotImplementedError(_Q8_MOMENTS)
+    accumulator memory).
+    q8_moments: block-quantized int8 Adam moments (the state must come
+    from init_state(moment_dtype="int8")); no ``eps_root``, as in the
+    reference."""
     adt = getattr(torch, accum_dtype)
 
     def grads_of(params, batch):
@@ -147,9 +150,14 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
 
         if compress_grads:
             grads, new_res = _compress(grads, state["residuals"])
-        _, new_opt, opt_metrics = adamw_update(
-            params, grads, state["opt"], lr=lr, eps_root=EPS_ROOT,
-            weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+        if q8_moments:
+            _, new_opt, opt_metrics = q8nd_adamw_update(
+                params, grads, state["opt"], lr=lr,
+                weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+        else:
+            _, new_opt, opt_metrics = adamw_update(
+                params, grads, state["opt"], lr=lr, eps_root=EPS_ROOT,
+                weight_decay=weight_decay, max_grad_norm=max_grad_norm)
         state["opt"] = new_opt
         if compress_grads:
             state["residuals"] = new_res

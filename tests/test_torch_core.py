@@ -46,9 +46,10 @@ CHANGED = {
         ('    # The reference\'s condition names "jax".  In the port the '
          'hazard is\n    # torch: it starts its intra-op thread pool when '
          'imported, and a forked\n    # child cannot use the parent\'s CUDA '
-         'context.  In the port this refuses\n    # fork always: importing '
-         'this module runs core/__init__, which imports\n    # microbench '
-         'and so torch.  Every pool is a forkserver (or spawn).\n', ""),
+         'context.  A process that has not\n    # loaded torch may fork '
+         '(core/__init__ loads microbench, and so torch,\n    # only on '
+         'first use); once torch is loaded, a pool is a forkserver (or\n'
+         '    # spawn).\n', ""),
         ('"torch" not in sys.modules', '"jax" not in sys.modules'),
         ("once ``torch`` is loaded", "once ``jax`` is loaded"),
         ("(torch loaded, or any live", "(jax loaded, or any live"),

@@ -337,3 +337,37 @@ def test_serve_runs_on_cpu_with_memory(arch, capsys):
                              seed=0, device="cpu")
     assert torch.equal(again[1], prompt) and torch.equal(again[2], mem)
     assert "[serve]" in capsys.readouterr().out
+
+
+def test_vision_bf16_kernel_gap_is_no_wider_than_the_reference_s():
+    """vlm-smoke in bf16, every xgate at 0.5: the logits of the kernel path
+    (``use_flash_kernel``; the reference's Pallas kernel in interpret mode,
+    the port's kernel wrapper on its plain version) against the plain
+    path, in each package, over three seeds.  The gap is bf16 rounding if
+    the port's is no wider than the reference's own; both are printed."""
+    over = dict(dtype="bfloat16", param_dtype="bfloat16")
+    gaps = {"reference": [], "port": []}
+    for seed in range(3):
+        params = _live_gates(jax.tree.map(np.asarray, ref_build(
+            ref_get_config(VLM, smoke=True)).init(jax.random.PRNGKey(seed))))
+        tokens, mem = _inputs(VLM, 2, 128, seed)
+        ref_p = jax.tree.map(
+            lambda a: jnp.asarray(a, jnp.bfloat16)
+            if a.dtype == np.float32 else jnp.asarray(a), params)
+        out = {}
+        for flash in (True, False):
+            ref_model, model = _pair(VLM, params, use_flash_kernel=flash,
+                                     **over)
+            out["reference", flash] = np.asarray(ref_model.forward(
+                ref_p, jnp.asarray(tokens),
+                memory_embeds=jnp.asarray(mem))[0], np.float32)
+            with torch.inference_mode():
+                out["port", flash] = model.forward(
+                    torch.from_numpy(tokens),
+                    memory_embeds=torch.from_numpy(mem))[0].float().numpy()
+        for pkg in gaps:
+            gaps[pkg].append(float(np.abs(out[pkg, True]
+                                          - out[pkg, False]).max()))
+    print(f"[vision bf16 gap] reference {gaps['reference']} port "
+          f"{gaps['port']}")
+    assert max(gaps["port"]) <= max(gaps["reference"])

@@ -552,3 +552,63 @@ def test_smoke_train_steps_on_card_match_cpu(cuda_device, remat,
     for name in want:
         torch.testing.assert_close(got[name], want[name], atol=2e-5,
                                    rtol=2e-4, msg=name)
+
+
+def test_int8_moment_updates_on_card_match_cpu(cuda_device):
+    """danube-smoke: three chained ``q8nd_adamw_update`` steps on the CPU,
+    each also run on the card from the CPU's state, and a free-running
+    chain on the card, from the same weights, zero state and gradients.
+    Given the same state, codes differ only where the card's log / exp and
+    the CPU's differ by an ulp at a rounding boundary: by at most 1, in at
+    most 1e-4 of them, params within a tenth of lr.  Run free, a code that
+    parted carries its difference on: at most 1e-4 of the codes differ and
+    the params stay within three steps of a tenth of lr (chip_smoke.py's
+    [train_q8] gates)."""
+    import numpy as np
+    from repro_torch.models.convert import (params_from_jax, params_to_jax,
+                                            state_from_jax, state_to_jax)
+    from repro_torch.optim.quantized_moments import q8nd_adamw_update
+    from repro_torch.train import train_step
+    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    model = build(cfg, "cpu").init(generator(0, "cpu"))
+    tree = params_to_jax(model)
+    rng = np.random.default_rng(3)
+    grads = [{k: np.asarray(rng.standard_normal(p.shape) * 0.1, np.float32)
+              for k, p in model.named_parameters()} for _ in range(3)]
+    devices = {"cpu": "cpu", "card": cuda_device, "free": cuda_device}
+    states = {k: train_step.init_state(params_from_jax(tree, cfg, device=d),
+                                       moment_dtype="int8")
+              for k, d in devices.items()}
+
+    def leaves(tree, prefix=""):
+        for k, v in sorted(tree.items()):
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    def compare(got_state, want_state, max_diff, atol):
+        got, want = state_to_jax(got_state), state_to_jax(want_state)
+        g_opt, w_opt = dict(leaves(got["opt"])), dict(leaves(want["opt"]))
+        assert g_opt.keys() == w_opt.keys()
+        n = differ = 0
+        for name, w in w_opt.items():
+            if w.dtype == torch.int8:
+                d = (g_opt[name].int() - w.int()).abs()
+                assert max_diff is None or int(d.max()) <= max_diff, name
+                n, differ = n + d.numel(), differ + int((d > 0).sum())
+        assert differ <= 1e-4 * n, (differ, n)
+        g_p, w_p = dict(leaves(got["params"])), dict(leaves(want["params"]))
+        for name in w_p:
+            torch.testing.assert_close(g_p[name], w_p[name], atol=atol,
+                                       rtol=0, msg=name)
+
+    for g in grads:
+        state_from_jax(state_to_jax(states["cpu"]), states["card"])
+        for k, st in states.items():
+            q8nd_adamw_update(st["params"],
+                              {n: torch.from_numpy(v).to(devices[k])
+                               for n, v in g.items()},
+                              st["opt"], lr=1e-3)
+        compare(states["card"], states["cpu"], 1, 1e-4)
+    compare(states["free"], states["cpu"], None, 3e-4)

@@ -342,10 +342,11 @@ def test_served_tile_is_select_blocks_pick(servers, precision):
 
 
 def test_worker_pool_is_a_forkserver_that_prices_bit_identically():
-    """``--jobs 2`` in the port: torch is loaded, so the pool forks nothing
-    and is a forkserver whose workers re-import the port's core.  Its first
-    streamed request carries the pool's start (printed, host clock); both
-    requests match the in-process sweep."""
+    """``--jobs 2`` in a process that has loaded torch (this one): the pool
+    forks nothing and is a forkserver whose workers re-import the port's
+    core (not torch: ``core.microbench`` loads lazily).  Its first streamed
+    request carries the pool's start (printed, host clock); both requests
+    match the in-process sweep."""
     from repro_torch.core import parallel
     assert parallel._mp_context().get_start_method() == "forkserver"
     secs = []
@@ -367,6 +368,70 @@ def test_worker_pool_is_a_forkserver_that_prices_bit_identically():
                 assert np.array_equal(got, want)
     print(f"[pool] first pooled request {secs[0]:.3f} s (the pool's start), "
           f"second {secs[1]:.3f} s")
+
+
+_FORKED_POOL = """
+import sys
+import numpy as np
+from repro_torch.core import hardware, parallel, sweep, workload
+from repro_torch.serve import client, server
+assert parallel._mp_context().get_start_method() == "fork"
+spec = workload.LatticeSpec.cartesian(
+    workload.gemm_workload("p", 2048, 2048, 2048, precision="bf16"),
+    flops=np.geomspace(1e6, 1e12, 40), bytes=np.geomspace(1e6, 1e12, 40))
+want = sweep.predict_table(spec.materialize(), hardware.get("h100")).totals
+# a per-call pool, forked: this process is single-threaded and has no torch
+assert parallel.processes_available()
+got = sweep.predict_totals_stream(spec, hardware.get("h100"), jobs=2,
+                                  chunk_size=400)
+assert np.array_equal(got, want)
+with server.PredictionServer(port=0, jobs=2).start() as srv:
+    with client.PredictionClient(*srv.address, timeout=120.0) as cli:
+        got = cli.predict_totals(spec, "h100", jobs=2, chunk_size=400,
+                                 deadline_s=300.0)
+assert np.array_equal(got, want)
+assert "torch" not in sys.modules
+print("ok")
+"""
+
+
+def test_pool_prices_bit_identically_in_a_process_without_torch(tmp_path):
+    """Where no torch is loaded (the server's own process) the port's pools
+    start as the reference's do: a per-call pool of a single-threaded
+    process forks, and the server's ``--jobs 2`` pool is a forkserver whose
+    workers import no torch either; both price the lattice bit-identically
+    to the in-process sweep."""
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+           "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", _FORKED_POOL], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "ok"
+
+
+_LAZY_MICROBENCH = """
+import sys
+import repro_torch.serve.server, repro_torch.launch.predict_serve
+import repro_torch.core as core
+assert "torch" not in sys.modules, "importing the server loaded torch"
+assert "microbench" in core.__all__
+assert "repro_torch.core.microbench" not in sys.modules
+bench = core.microbench
+assert "torch" in sys.modules and bench.MeasuredSuite
+print("ok")
+"""
+
+
+def test_importing_the_server_loads_no_torch(tmp_path):
+    """A fresh interpreter that imports the server and its launcher holds no
+    torch; ``repro_torch.core.microbench`` stays an attribute of the
+    package, and loading it is what brings torch in."""
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
+           "HOME": str(tmp_path)}
+    out = subprocess.run([sys.executable, "-c", _LAZY_MICROBENCH], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip() == "ok"
 
 
 # --------------------------------------------------------------- calibration
@@ -548,3 +613,4 @@ def test_predict_serve_launcher_subprocess_imports_no_jax(tmp_path):
     assert not [n for n in names
                 if n == "jax" or n.startswith(("jax.", "repro."))
                 or n == "repro"]
+    assert not [n for n in names if n == "torch" or n.startswith("torch.")]
