@@ -2,12 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper card: the quickest proof that the port still builds, agrees with its
 plain versions, serves h2o-danube-1.8b, mamba2-1.3b, qwen3-moe-235b-a22b,
-deepseek-v3-671b, recurrentgemma-9b, whisper-tiny and llama-3.2-vision-90b
-at full width (the MoE and vision models with their depth cut to fit the
-card), runs the paper's loop (microbenchmark -> calibrate -> predict ->
-validate) on the card, trains h2o-danube-1.8b at full width and depth, and
-trains with int8 Adam moments at full width: danube, recurrentgemma-9b
-whole, and qwen3-moe and llama-3.2-vision with their depth cut.
+deepseek-v3-671b, recurrentgemma-9b, whisper-tiny, llama-3.2-vision-90b,
+minicpm-2b, deepseek-67b and llama3-405b at full width (the MoE, vision and
+two largest dense models with their depth cut to fit the card), runs the
+paper's loop (microbenchmark -> calibrate -> predict -> validate) on the
+card, trains h2o-danube-1.8b at full width and depth, trains with int8 Adam
+moments at full width: danube, recurrentgemma-9b whole, and qwen3-moe and
+llama-3.2-vision with their depth cut, and runs the two sharded paths on
+two ranks that share the card (expert-parallel MoE, head-sharded SSD).
 
     python3 chip_smoke.py
 
@@ -103,8 +105,10 @@ non-zero and prints no result):
                times (4 non-causal in the encoder, 4 causal in the
                decoder; cross-attention reaches none, as in the reference)
                and llama-3.2-vision-90b (20 of 100 layers, 8192 tokens,
-               1601 image embeddings) 20 times; PREFILL gives the cuts and
-               why.  The fp32 check runs at depth 2 for the MoE models,
+               1601 image embeddings) 20 times; minicpm-2b (whole, 8192;
+               MHA at D=64, its head tied to the embedding) 40 times,
+               deepseek-67b (30 of 95 layers) 30 and llama3-405b (6 of
+               126) 6; PREFILL gives the cuts and why.  The fp32 check runs at depth 2 for the MoE models,
                5 for llama-3.2-vision, the others whole.  For the MoE
                models the lines also count, with ``models.moe.route``, the
                assignments each layer drops and those the fp32 paths route
@@ -178,7 +182,25 @@ non-zero and prints no result):
                (Q8_MODELS), the miss printed; (d) deepseek-v3: one MoE
                layer with its embedding and head, counted on the meta
                device, over the card; not run.
-8. result    - the script's seconds; one JSON line listing every kernel
+8. sharded   - two spawned ranks share the card over gloo (NCCL refuses
+               two ranks on one GPU) as a (data 1, model 2) mesh, after a
+               probe that gloo takes CUDA tensors for its all-reduce and
+               all-gather: qwen3-moe-235b-a22b at depth 2, full width, 64
+               of each layer's 128 experts a rank (``moe_apply_sharded``):
+               fp32 logits over the generate phase's 4 x 256 prompt at
+               capacity E/k (1e-3) and one backward's expert grads,
+               gathered on rank 0
+               (TRAIN_TOL), against rank 0's one-device run of the same
+               weights; bf16 at S=8192 and the config's capacity timed,
+               each rank's drops a layer (their sum equal to one device's
+               in the first layer), the gap to one device printed;
+               mamba2-1.3b with ``ssd_shard_map`` (32 of 64 heads a rank):
+               fp32 depth 4 at S=8192, logits and every gradient at
+               SSD_SHARD_TOL against the one-device plain path, then the
+               whole bf16 model timed; each collective's bytes a layer,
+               its measured gloo time and ``core/collectives`` price on
+               NVLink.  A rank that fails fails the phase.
+9. result    - the script's seconds; one JSON line listing every kernel
                (a kernel's launches: the sum over the main paths' counted
                runs, each path's count under launches_by_path), then the
                last line
@@ -190,9 +212,12 @@ card is a full fp32 product.  Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import datetime
 import gc
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -209,9 +234,12 @@ os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch import distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch.configs import get_config, memory_len  # noqa: E402
 from repro_torch.core import hardware, microbench  # noqa: E402
+from repro_torch.core.collectives import collective_time  # noqa: E402
 from repro_torch.device import generator  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -223,6 +251,8 @@ from repro_torch.kernels.rmsnorm import (  # noqa: E402
 from repro_torch.kernels.ssd import (  # noqa: E402
     kernel as ssd_kernel, ref as ssd_ref)
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh, mesh_spec_of  # noqa: E402,E501
 from repro_torch.launch.serve import serve, setup  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
@@ -247,7 +277,11 @@ DSV3 = "deepseek-v3-671b"
 RG = "recurrentgemma-9b"
 WHISPER = "whisper-tiny"
 VISION = "llama-3.2-vision-90b"
-ARCHS = (DANUBE, MAMBA2, QWEN3, DSV3, RG, WHISPER, VISION)
+MINICPM = "minicpm-2b"
+DS67 = "deepseek-67b"
+LLAMA3 = "llama3-405b"
+ARCHS = (DANUBE, MAMBA2, QWEN3, DSV3, RG, WHISPER, VISION, MINICPM, DS67,
+         LLAMA3)
 SEED = 0
 PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 # Each served model's prefill: (prompt length, the served config's depth
@@ -268,6 +302,14 @@ PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 # 1).  llama-3.2-vision-90b: 20 of 100 layers (4 groups of four attn and a
 # cross_attn block, 39.6 GB in bf16; 100 would be 181 GB), the fp32 check
 # at 5 (one group, 26.1 GB); the memory is its 1601 image embeddings.
+# minicpm-2b is whole (5.45 GB in bf16: the only MHA config, 36 heads of 64,
+# its head tied to the embedding).  deepseek-67b: 30 of 95 layers (1.384 GB
+# a layer, 3.36 GB of embedding and head: 44.9 GB); llama3-405b: 6 of 126
+# (6.375 GB a layer, 8.41 GB: 46.7 GB); each leaves the card room for the
+# request's activations and logits.  Their fp32 checks run depth 2 (minicpm
+# 1.62 GB; deepseek-67b 12.3 GB; llama3-405b 42.3 GB beside the plain path's
+# fp32 score chunk, 128 x 1024 x 8192 x 4 B = 4.3 GB, and two fp32 logit
+# tensors of 4.2 GB).
 PREFILL = {DANUBE: (PREFILL_LEN, {}, {}),
            MAMBA2: (PREFILL_LEN, {}, {}),
            QWEN3: (PREFILL_LEN, {"n_layers": 8}, {"n_layers": 2}),
@@ -275,7 +317,10 @@ PREFILL = {DANUBE: (PREFILL_LEN, {}, {}),
                   {"n_layers": 2, "first_dense": 1}),
            RG: (PREFILL_LEN, {}, {}),
            WHISPER: (1536, {}, {}),
-           VISION: (PREFILL_LEN, {"n_layers": 20}, {"n_layers": 5})}
+           VISION: (PREFILL_LEN, {"n_layers": 20}, {"n_layers": 5}),
+           MINICPM: (PREFILL_LEN, {}, {"n_layers": 2}),
+           DS67: (PREFILL_LEN, {"n_layers": 30}, {"n_layers": 2}),
+           LLAMA3: (PREFILL_LEN, {"n_layers": 6}, {"n_layers": 2})}
 # Every cross-attention gate is set to this on each model a check compares
 # (both sides): the reference's init sets it to 0, and tanh(0) = 0 would
 # make a cross_attn block add nothing from the memory, so a check would pass
@@ -331,9 +376,16 @@ BF16_REQUEST_TOL = {"atol": 1e-1, "rtol": 5e-2}
 # card (4.268e-5 in fp32, gated), as far apart as the bound itself.  So is
 # llama-3.2-vision: 1.309e-1 at depth 20 (6.253e-5 in fp32), past atol, so
 # whether a run passes would turn on which logit the largest flip lands on.
+# minicpm-2b held it with room (1.123e-2 over 40 MHA layers at D=64) and is
+# gated.  deepseek-67b (30 layers) and llama3-405b (6 layers) are printed as
+# vision is: D=128 GQA like vision, and in bf16 their kernel and plain paths
+# were 1.406e-1 and 1.523e-1 apart on logits up to 7.7 and 11.8 (1-2% of
+# the largest logit, a few bf16 units; 4.625e-5 and 8.488e-5 in fp32,
+# gated), past atol where a logit is small.
 # An ungated model's line says whether it held the bound.
 BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True,
-              RG: False, WHISPER: True, VISION: False}
+              RG: False, WHISPER: True, VISION: False, MINICPM: True,
+              DS67: False, LLAMA3: False}
 # The MoE models' prompt logits are held in fp32, on the prefill phase's
 # fp32 model (its depth cut: an fp32 copy of the served model would not fit
 # beside it), with the capacity factor raised to E/k on both sides, so that
@@ -350,7 +402,8 @@ BF16_GATED = {DANUBE: True, MAMBA2: False, QWEN3: True, DSV3: True,
 PROMPT_CHECK_DTYPE = {DANUBE: torch.bfloat16, MAMBA2: torch.float32,
                       QWEN3: torch.float32, DSV3: torch.float32,
                       RG: torch.float32, WHISPER: torch.float32,
-                      VISION: torch.float32}
+                      VISION: torch.float32, MINICPM: torch.float32,
+                      DS67: torch.float32, LLAMA3: torch.float32}
 PROMPT_CHECK_ROWS = {QWEN3: GEN_BATCH, DSV3: 2}
 # SSD kernel against ``ssd_chunked`` at the same chunk: the same algorithm
 # in fp32 with its sums in another order (64-deep 3xTF32 partials, a warp
@@ -1634,6 +1687,12 @@ def memory_for(cfg, batch: int, seq: int):
                        generator=generator(SEED + 2, "cuda"), device="cuda")
 
 
+def param_bytes(cfg) -> int:
+    """The parameters' bytes, counted on the meta device."""
+    return sum(p.numel() * p.element_size()
+               for p in build(cfg, "meta").parameters())
+
+
 def plain(cfg):
     """The plain path a kernel path is held to: no kernel, and no attention
     softcap, which the kernel path drops as the reference's does."""
@@ -1661,6 +1720,7 @@ def prefill_requests(arch: str, entries: dict) -> None:
     # fp32: the kernel path against the plain path (attn_chunk=1024 ->
     # _sdpa_chunked; mamba2: ssd_chunked), tight tolerance.
     cfg32 = cfg.replace(dtype="float32", param_dtype="float32", **check_cut)
+    torch.cuda.reset_peak_memory_stats()
     model = build(cfg32, "cuda").init(generator(SEED, "cuda"))
     gates = live_xgates(model)
     prefill = make_prefill(model)
@@ -1695,6 +1755,7 @@ def prefill_requests(arch: str, entries: dict) -> None:
           depth=repr(depth(cfg32)), launches=launches32, **gates,
           max_abs_err=f"{err32:.3e}", tol=FP32_REQUEST_TOL,
           logits_absmax=f"{logits_absmax:.3f}",
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
           **moe_fields(cfg32, seq), **extra)
     if not within:
         raise AssertionError(f"{what}: max abs err {err32:.3e} outside "
@@ -1745,6 +1806,7 @@ def prefill_requests(arch: str, entries: dict) -> None:
           plain_request_ms=[round(t, 3) for t in plain_req_ms],
           tok_per_s=f"{seq / kernel_req_ms[1] * 1e3:.1f}",
           max_abs_err=f"{err16:.3e}", tol=tol16,
+          params_gb_reckoned=f"{param_bytes(cfg) / 1e9:.2f}",
           peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
           **moe_fields(cfg, seq), **drops)
     del model, prefill, logits_k, logits_p
@@ -2382,6 +2444,446 @@ def train_q8() -> None:
     phase("train_q8", seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ----------------------------------------------------------------- phase 9
+
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# GPU): a (data 1, model 2) mesh.  Every product, scan and flash launch runs
+# on the card; gloo stages the two collectives (all-reduce, all-gather)
+# through the host.
+SHARDED_WORLD = 2
+SHARDED_TIMEOUT_S = 900
+# qwen3-moe at depth 2, full width: each rank holds 64 of each layer's 128
+# experts.  fp32 prompt: the MoE prompt check's (4 x 256) at capacity
+# E/k, so nothing drops; bf16 request: S=8192, the config's capacity.
+SHARDED_MOE_CUT = {"n_layers": 2}
+# mamba2-1.3b, ssd_shard_map: 32 of its 64 heads a rank.  The fp32 check
+# runs depth 4 at S=8192: the plain chunked scan keeps (H_local, nc, L, L)
+# tiles of ~268 MB a layer (fp32, 32 heads, 32 chunks of 256), several of
+# them saved for the backward, on both ranks and the one-device run.
+SHARDED_MAMBA_CHECK_CUT = {"n_layers": 4}
+SHARDED_TIMED_RUNS = 3
+# its whole-model forward spends ~5 s in 48 gloo all-gathers, so it is
+# timed twice after a warm-up
+SHARDED_MAMBA_TIMED_RUNS = 2
+# the reference's own tolerance for ssd_shard_map against one device
+# (tests/test_perf_switches.py:58-59)
+SSD_SHARD_TOL = {"atol": 2e-4, "rtol": 2e-3}
+# NVLink 4 of the H100 SXM: 900 GB/s a card, both directions together (the
+# data sheet), for ``core/collectives.collective_time``'s price of the same
+# bytes between two cards; the h100 file carries no link rate.
+NVLINK_BYTES_PER_S_ONE_WAY = 450e9
+
+
+def sharded(entries: dict) -> None:
+    """Spawn the ranks, wait for them (a rank that fails fails the phase at
+    once and the others are stopped), and record each rank's launches."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_dir = ROOT / "build" / "sharded"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, SHARDED_WORLD, str(run_dir)))
+             for r in range(SHARDED_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = {r: p.exitcode for r, p in enumerate(procs)
+                      if p.exitcode not in (None, 0)}
+            if failed:
+                raise AssertionError(f"[sharded] ranks failed: {failed}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[sharded] ranks still running after "
+                                     f"{SHARDED_TIMEOUT_S} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
+    if failed:
+        raise AssertionError(f"[sharded] ranks failed: {failed}")
+    for r in range(SHARDED_WORLD):
+        done = json.loads((run_dir / f"rank{r}.json").read_text())
+        for path, launches in done["launches"].items():
+            record_launches(entries, f"[sharded] {path} rank {r}", launches)
+    phase("sharded", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def sharded_rank(rank: int, world: int, run_dir: str) -> None:
+    """One rank: the gloo probe, the qwen3-moe layer, the mamba2 model.
+    Writes its launch counts; any failure raises (exit code 1)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{run_dir}/store", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        mesh = make_test_mesh(model=world)
+        gloo_cuda_probe(mesh, rank)
+        launches = sharded_moe(mesh, rank)
+        launches.update(sharded_mamba2(mesh, rank))
+        (Path(run_dir) / f"rank{rank}.json").write_text(
+            json.dumps({"launches": launches}))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cuda_probe(mesh, rank: int) -> None:
+    """gloo's all-reduce and all-gather take CUDA tensors, or this
+    raises."""
+    group = mesh.get_group("model")
+    n = dist.get_world_size(group)
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(x, group=group)
+    parts = [torch.empty(2, device="cuda") for _ in range(n)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"),
+                    group=group)
+    if x.tolist() != [n * (n + 1) / 2] * 4 or \
+            [p.tolist() for p in parts] != [[float(r)] * 2
+                                            for r in range(n)]:
+        raise AssertionError(f"gloo on CUDA tensors: {x}, {parts}")
+    phase("sharded", rank=rank, mesh=repr(shd.mesh_shape(mesh)),
+          backend=dist.get_backend(), gloo_cuda_all_reduce="ok",
+          gloo_cuda_all_gather="ok")
+
+
+def same_on_every_rank(what: str, t) -> None:
+    """Every rank holds the same values (a sum in fp64 compared)."""
+    s = t.double().sum().reshape(1).cuda()
+    parts = [torch.empty_like(s) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, s)
+    if len({p.item() for p in parts}) != 1:
+        raise AssertionError(f"{what} differs between ranks: {parts}")
+
+
+def expert_names(model) -> list:
+    return sorted(n for n, _ in model.named_parameters()
+                  if n.rsplit(".", 1)[-1] in shd.EXPERT)
+
+
+def logits_and_expert_grads(model, batch) -> tuple:
+    """The forward's logits, then one backward of ``loss_fn`` with only the
+    experts' weights taking gradients; (logits, {name: local grad})."""
+    names = set(expert_names(model))
+    for n, p in model.named_parameters():
+        p.requires_grad_(n in names)
+    with torch.no_grad():
+        logits, _ = model.forward(batch["tokens"])
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        if n in names:
+            g = p.grad
+            grads[n] = g.to_local() if isinstance(g, DTensor) else g
+            p.grad = None
+        p.requires_grad_(False)
+    return logits, grads
+
+
+def shard_experts(model, mesh):
+    """Keep this rank's experts only (the rest of the model whole)."""
+    shd.distribute_params(model, moe_mod.expert_shardings(model, mesh))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def built_in_turn(cfg, mesh, rank: int, first=None):
+    """Each rank builds the whole model from SEED and keeps its experts,
+    one rank at a time (two whole models would not fit beside each other);
+    ``first(model)`` runs on rank 0's whole model before it is sharded."""
+    out, model = None, None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+            if first is not None and rank == 0:
+                out = first(model)
+            model = shard_experts(model, mesh)
+        dist.barrier()
+    return model, out
+
+
+def local_drops(routes, cfg, rank: int, n_model: int) -> list:
+    """Assignments this rank's experts drop in each MoE layer."""
+    e_loc = cfg.n_experts // n_model
+    out = []
+    for r in routes:
+        _, _, keep, mine = moe_mod.local_route(
+            r.experts.reshape(-1, cfg.top_k), e_loc, rank, r.cap)
+        out.append(int((mine & ~keep).sum()))
+    return out
+
+
+def collective_price(op: str, nbytes: int, mesh) -> str:
+    hw = dataclasses.replace(hardware.get("h100"),
+                             ici_link_bw=NVLINK_BYTES_PER_S_ONE_WAY,
+                             ici_links_per_axis=1)
+    secs = collective_time(op, nbytes, "model", mesh_spec_of(mesh), hw)
+    return f"{secs * 1e3:.4f}"
+
+
+def measured_collective_ms(op: str, nbytes: int, mesh) -> str:
+    """Median host time of the collective on a CUDA buffer over gloo."""
+    group = mesh.get_group("model")
+    x = torch.ones(nbytes // 4, device="cuda")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if op == "all-reduce":
+            shd.reduce_from(x, group)
+        else:
+            shd.gather_from(x, 0, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return f"{statistics.median(times):.3f}"
+
+
+def sharded_moe(mesh, rank: int) -> dict:
+    """qwen3-moe at depth 2 over the two ranks: fp32 logits and expert
+    grads (gathered on rank 0) held against rank 0's one-device run of the
+    same weights; the bf16 request at S=8192 timed, its drops and gap
+    printed.  Returns the counted run's launches."""
+    t0 = time.perf_counter()
+    n_model = shd.mesh_shape(mesh)["model"]
+    base = get_config(QWEN3).replace(**SHARDED_MOE_CUT)
+    cfg = base.replace(dtype="float32", param_dtype="float32",
+                       capacity_factor=base.n_experts / base.top_k)
+    gen = generator(SEED + 1, "cuda")
+    shape = (GEN_BATCH, GEN_PROMPT)
+    batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device="cuda"),
+             "labels": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                     device="cuda")}
+    if moe_mod.capacity(cfg, math.prod(shape)) < math.prod(shape):
+        raise AssertionError("capacity E/k still drops")
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_device(model):
+        logits, grads = logits_and_expert_grads(model, batch)
+        return logits.cpu(), {n: g.cpu() for n, g in grads.items()}
+    model, want = built_in_turn(cfg, mesh, rank, first=one_device)
+    with shd.use_mesh(mesh):
+        logits, grads = logits_and_expert_grads(model, batch)
+    same_on_every_rank("qwen3-moe fp32 logits", logits)
+    fields = {}
+    if rank == 0:
+        want_logits, want_grads = want
+        err = check_close("sharded qwen3-moe fp32 logits", logits,
+                          want_logits.cuda(), atol=FP32_REQUEST_TOL,
+                          rtol=FP32_REQUEST_TOL)
+        fields["logits_err"] = f"{err:.3e}"
+    grad_err = 0.0
+    for name in expert_names(model):
+        mine = grads[name].cpu()
+        if rank != 0:
+            dist.send(mine, dst=0)
+            continue
+        parts = [mine] + [torch.empty_like(mine)
+                          for _ in range(1, n_model)]
+        for r in range(1, n_model):
+            dist.recv(parts[r], src=r)
+        got = torch.cat(parts).cuda()
+        grad_err = max(grad_err, check_close(
+            f"sharded qwen3-moe fp32 grad {name}", got,
+            want_grads.pop(name).cuda(), **TRAIN_TOL))
+        del got, parts
+    if rank == 0:
+        fields.update(expert_grad_err=f"{grad_err:.3e}", grad_tol=TRAIN_TOL)
+    phase("sharded", arch=QWEN3, rank=rank, dtype="float32",
+          depth=repr(depth(cfg)), tokens=shape,
+          experts_held=f"{base.n_experts // n_model} of {base.n_experts}",
+          capacity_factor=cfg.capacity_factor, logits_tol=FP32_REQUEST_TOL,
+          **fields, peak_mem_gb=round(torch.cuda.max_memory_allocated()
+                                      / 1e9, 2),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    del model, want, logits, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16: the served request.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = base.replace(use_flash_kernel=True)
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_LEN),
+                           generator=generator(SEED + 1, "cuda"),
+                           device="cuda")
+
+    def one_device(model):
+        with torch.inference_mode():
+            with recorded_routes(cfg) as routes:
+                logits = model.forward(tokens)[0]
+            ms = host_ms(lambda: model.forward(tokens))
+        return logits.cpu(), dropped(routes), ms
+    model, want = built_in_turn(cfg, mesh, rank, first=one_device)
+    with torch.inference_mode(), shd.use_mesh(mesh):
+        with recorded_routes(cfg) as routes:
+            logits = model.forward(tokens)[0]
+        drops = local_drops(routes, cfg, mesh.get_local_rank("model"),
+                            n_model)
+        del routes
+        reset_launches()
+        ms = [host_ms(lambda: model.forward(tokens))]
+        launches = read_launches()
+        check_launches("sharded qwen3-moe bf16 forward", launches,
+                       expected_launches(cfg, None))
+        ms = sorted(ms + [host_ms(lambda: model.forward(tokens))
+                          for _ in range(SHARDED_TIMED_RUNS - 1)])
+    all_drops = [torch.empty(len(drops), dtype=torch.long, device="cuda")
+                 for _ in range(n_model)]
+    dist.all_gather(all_drops, torch.tensor(drops, device="cuda"))
+    same_on_every_rank("qwen3-moe bf16 logits", logits)
+    fields = {}
+    if rank == 0:
+        want_logits, want_drops, one_ms = want
+        want_logits = want_logits.cuda()
+        gap = max_abs_err("sharded qwen3-moe bf16 logits", logits,
+                          want_logits)
+        last_gap = max_abs_err("sharded qwen3-moe bf16 last logits",
+                               logits[:, -1], want_logits[:, -1])
+        rows_held = torch.isclose(logits.float(), want_logits.float(),
+                                  **BF16_REQUEST_TOL).all(-1).float().mean()
+        summed = torch.stack(all_drops).sum(0).tolist()
+        # the first MoE layer sees the same input on both paths, so the
+        # ranks drop exactly what the one-device path drops there
+        if summed[0] != want_drops[0]:
+            raise AssertionError(f"first layer drops {summed} against one "
+                                 f"device {want_drops}")
+        t = PREFILL_LEN
+        nbytes = t * cfg.d_model * 4      # one fp32 (T, D) all-reduce
+        fields = {"one_device_dropped_per_layer": want_drops,
+                  "ranks_dropped_summed": summed,
+                  "bf16_gap_to_one_device_not_gated": f"{gap:.3e}",
+                  "last_token_gap": f"{last_gap:.3e}",
+                  "share_of_rows_within_bf16_tol": f"{rows_held:.4f}",
+                  "one_device_ms": round(one_ms, 3),
+                  "collective": "all-reduce over model, once a layer",
+                  "collective_bytes_per_layer": nbytes,
+                  "collective_ms_measured_gloo": measured_collective_ms(
+                      "all-reduce", nbytes, mesh),
+                  "collective_ms_model_nvlink": collective_price(
+                      "all-reduce", nbytes, mesh)}
+    else:
+        measured_collective_ms("all-reduce", PREFILL_LEN * cfg.d_model * 4,
+                               mesh)
+    phase("sharded", arch=QWEN3, rank=rank, dtype="bfloat16",
+          depth=repr(depth(cfg)), tokens=PREFILL_LEN,
+          capacity_factor=cfg.capacity_factor,
+          cap_local=moe_mod.capacity(cfg, PREFILL_LEN),
+          dropped_per_layer=drops, launches=launches,
+          request_ms=[round(m, 3) for m in ms], **fields,
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    del model, want, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {QWEN3: launches}
+
+
+def sharded_mamba2(mesh, rank: int) -> dict:
+    """mamba2-1.3b with ssd_shard_map over the two ranks: fp32 logits and
+    every gradient at depth 4 held against rank 0's one-device plain path
+    at the reference's tolerance; the whole model's bf16 forward at S=8192
+    timed.  The sharded scan is the plain chunked one, as the reference's
+    is, so no kernel is launched (counted)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(MAMBA2).replace(ssd_shard_map=True)
+    cfg = full.replace(dtype="float32", param_dtype="float32",
+                       use_flash_kernel=False, **SHARDED_MAMBA_CHECK_CUT)
+    gen = generator(SEED + 1, "cuda")
+    batch = {k: torch.randint(0, cfg.vocab, (1, PREFILL_LEN), generator=gen,
+                              device="cuda") for k in ("tokens", "labels")}
+    model = build(cfg, "cuda").init(generator(SEED, "cuda"))
+
+    def run():
+        model.requires_grad_(True)
+        with torch.no_grad():
+            logits, _ = model.forward(batch["tokens"])
+        model.loss_fn(batch)[0].backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        model.requires_grad_(False)
+        return logits, grads
+    want = None
+    if rank == 0:
+        logits, grads = run()
+        want = logits.cpu(), {n: g.cpu() for n, g in grads.items()}
+        del logits, grads
+    dist.barrier()
+    with shd.use_mesh(mesh):
+        logits, grads = run()
+    same_on_every_rank("mamba2 fp32 logits", logits)
+    for n, g in grads.items():
+        same_on_every_rank(f"mamba2 fp32 grad {n}", g)
+    fields = {}
+    if rank == 0:
+        err = check_close("sharded mamba2 fp32 logits", logits,
+                          want[0].cuda(), **SSD_SHARD_TOL)
+        grad_err = max(check_close(f"sharded mamba2 fp32 grad {n}", g,
+                                   want[1][n].cuda(), **SSD_SHARD_TOL)
+                       for n, g in grads.items())
+        fields = {"logits_err": f"{err:.3e}", "grad_err": f"{grad_err:.3e}"}
+    phase("sharded", arch=MAMBA2, rank=rank, dtype="float32",
+          depth=repr(depth(cfg)), tokens=PREFILL_LEN,
+          heads_held=f"{cfg.ssm_heads // shd.mesh_shape(mesh)['model']} "
+                     f"of {cfg.ssm_heads}", tol=SSD_SHARD_TOL, **fields,
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    del model, want, logits, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(full, "cuda").init(generator(SEED, "cuda"))
+    tokens = batch["tokens"]
+    logits = None
+
+    def request():
+        nonlocal logits
+        logits = model.forward(tokens)[0]
+    with torch.inference_mode(), shd.use_mesh(mesh):
+        request()                                   # warm-up
+        reset_launches()
+        ms = [host_ms(request)]
+        launches = read_launches()
+        check_launches("sharded mamba2 bf16 forward", launches,
+                       {name: 0 for name in KERNELS})
+        ms = sorted(ms + [host_ms(request)
+                          for _ in range(SHARDED_MAMBA_TIMED_RUNS - 1)])
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("sharded mamba2 bf16 logits not finite")
+    same_on_every_rank("mamba2 bf16 logits", logits)
+    n_model = shd.mesh_shape(mesh)["model"]
+    nbytes = PREFILL_LEN * full.ssm_heads // n_model * full.ssm_headdim * 4
+    measured = measured_collective_ms("all-gather", nbytes, mesh)
+    phase("sharded", arch=MAMBA2, rank=rank, dtype="bfloat16",
+          depth=repr(depth(full)), tokens=PREFILL_LEN, launches=launches,
+          request_ms=[round(m, 3) for m in ms],
+          collective="all-gather of y over model, once a layer",
+          collective_bytes_per_layer_per_rank=nbytes,
+          collective_ms_measured_gloo=measured,
+          collective_ms_model_nvlink=collective_price("all-gather", nbytes,
+                                                      mesh),
+          peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    del model, logits
+    torch.cuda.empty_cache()
+    return {MAMBA2: launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2401,8 +2903,11 @@ def main() -> int:
     del tile_runs
     torch.cuda.empty_cache()
     for arch in ARCHS:
+        t_arch = time.perf_counter()
         prefill_requests(arch, entries)
         generation_request(arch)
+        phase("serve", arch=arch,
+              seconds=f"{time.perf_counter() - t_arch:.1f}")
     torch.cuda.empty_cache()
     reset_launches()
     train_checks()
@@ -2410,6 +2915,7 @@ def main() -> int:
     check_launches("the train phase", read_launches(),
                    {name: 0 for name in KERNELS})
     train_q8()
+    sharded(entries)
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-from .pipeline import SyntheticLMData  # noqa: F401
+from .pipeline import SyntheticLMData, make_batch_specs  # noqa: F401

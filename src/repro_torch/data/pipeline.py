@@ -7,10 +7,9 @@ structure so tiny models can actually learn), with:
   * stub modality frontends (frame/patch embeddings) for audio/vlm archs.
 
 Counterpart of ``repro/data/pipeline.py``: pure numpy, so a batch here
-equals the reference's bit for bit.  The reference's ``make_batch_specs``
-builds JAX shape stand-ins for its dry run and goes with the pod tooling
-(ROADMAP.md Queue A).  Batches stay numpy; the caller moves them to its
-device.
+equals the reference's bit for bit.  Batches stay numpy; the caller moves
+them to its device.  ``make_batch_specs`` gives the inputs' shapes and
+dtypes as meta-device tensors, the reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import threading
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig
 from ..configs.registry import memory_len
@@ -76,3 +76,19 @@ class SyntheticLMData:
                 yield q.get()
         finally:
             stop.set()
+
+
+def make_batch_specs(cfg: ModelConfig, *, batch: int, seq_len: int,
+                     dtype=torch.int32) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins (shape and dtype, no memory) for every model
+    input (dry-run use)."""
+    specs = {
+        "tokens": torch.empty((batch, seq_len), dtype=dtype, device="meta"),
+        "labels": torch.empty((batch, seq_len), dtype=dtype, device="meta"),
+    }
+    mlen = memory_len(cfg, seq_len)
+    if mlen is not None:
+        specs["memory_embeds"] = torch.empty(
+            (batch, mlen, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+            device="meta")
+    return specs

@@ -8,11 +8,11 @@ kernel is held against, and the paths CPU tensors take.
                   ``use_flash_kernel`` is off.
 
 Counterpart of ``repro/kernels/ssd/ref.py``.  Of ``ssd_chunked_jnp``'s
-options, ``unroll_heads`` only served XLA's dry-run cost accounting,
-``tile_dtype`` only the shard_map path's bf16 tiles, and the ``constrain``
-calls only sharding; none has a counterpart on one device.  Head blocks are
-not needed either: at mamba2-1.3b's prefill shape (64 heads, 32 chunks of
-256) all heads' (L, L) decay tiles together take 0.5 GB.
+options, ``tile_dtype`` is kept (the sharded path's bf16 tiles);
+``unroll_heads`` only served XLA's dry-run cost accounting and the
+``constrain`` calls only GSPMD's sharding.  Head blocks are not needed
+either: at mamba2-1.3b's prefill shape (64 heads, 32 chunks of 256) all
+heads' (L, L) decay tiles together take 0.5 GB.
 """
 from __future__ import annotations
 
@@ -40,8 +40,12 @@ def ssd_scan_ref(x, dt, a_log, b, c):
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-def ssd_chunked(x, dt, a_log, b, c, *, chunk: int = 128):
+def ssd_chunked(x, dt, a_log, b, c, *, chunk: int = 128, tile_dtype=None):
     """Chunked SSD, all heads at once; S must be a multiple of ``chunk``.
+    ``tile_dtype`` (e.g. torch.bfloat16): the dtype the two intra-chunk
+    products take their operands in (C and B for the scores, the masked
+    scores and dt * x), accumulating in fp32, as the reference's
+    ``preferred_element_type``.
 
     Within a chunk, with g = cumsum(dt * A) and A = -exp(a_log):
         y_i = exp(g_i) C_i h_in + sum_{j <= i} (C_i . B_j) exp(g_i - g_j)
@@ -70,12 +74,15 @@ def ssd_chunked(x, dt, a_log, b, c, *, chunk: int = 128):
 
     # intra-chunk quadratic term.  Mask BEFORE exp: the masked (j > i)
     # entries have g_i - g_j > 0 and would overflow.
-    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)               # (B,nc,L,L)
+    def tile(t):        # a product's operand, rounded to tile_dtype
+        return t if tile_dtype is None else t.to(tile_dtype).float()
+
+    cb = torch.einsum("bcin,bcjn->bcij", tile(cf), tile(bf))   # (B,nc,L,L)
     live = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()
     seg = g[..., :, None] - g[..., None, :]                    # (B,nc,H,L,L)
     lmat = torch.exp(torch.where(live, seg, -1e30))
-    y = (cb[:, :, None] * lmat) @ (xh * dth[..., None])        # (B,nc,H,L,P)
+    y = tile(cb[:, :, None] * lmat) @ tile(xh * dth[..., None])  # (B,nc,H,L,P)
 
     # per-chunk state contributions, then the carry across chunks
     decay_state = torch.exp(g_last[..., None] - g)             # (B,nc,H,L)

@@ -26,6 +26,7 @@ again at every ``decode_step``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -35,6 +36,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..distributed import sharding as shd
 from .blocks import AttnBlock, make_block
 from .layers import dtype_of, embed_init, empty_param, pdtype_of, rmsnorm
 
@@ -164,7 +166,7 @@ class LanguageModel(nn.Module):
             else:
                 x, a = ckpt.checkpoint(self._group_apply, group, x, memory,
                                        use_reentrant=False,
-                                       context_fn=_REMAT_CONTEXTS[remat])
+                                       context_fn=_remat_context(remat))
             aux = aux + a
         return x, aux
 
@@ -325,6 +327,27 @@ def _keep_weight_products(ctx, op, *args, **kwargs):
     if op == torch.ops.aten.mm.default:
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(remat: str):
+    """The checkpoint's context_fn for ``remat``; under a mesh its recompute
+    also re-enters the mesh (``distributed.sharding.reentry``), so the
+    recomputed block takes the sharded paths its forward took."""
+    make = _REMAT_CONTEXTS[remat]
+    again = shd.reentry()
+    if again is None:
+        return make
+
+    def context_fn():
+        forward_ctx, recompute_ctx = make()
+        return forward_ctx, _chained(recompute_ctx, again())
+    return context_fn
+
+
+@contextlib.contextmanager
+def _chained(first, second):
+    with first, second:
+        yield
 
 
 _REMAT_CONTEXTS = {

@@ -12,19 +12,24 @@ one-hot tensors of GShard-style einsum MoE:
 
 Aux load-balancing loss per Switch/GShard: E * sum_e f_e * p_e.
 
-The reference's shard_map expert-parallel path (``moe_apply_sharded``)
-needs a mesh with a "model" axis; on one device its ``moe_apply`` takes the
-path ported here (ROADMAP.md Queue A item 10 holds the other).
+Under ``distributed.sharding.use_mesh`` with a "model" axis of more than
+one rank, ``moe_apply`` takes the expert-parallel path
+(``moe_apply_sharded``), as the reference's does: each model rank holds
+E / model experts and runs the tokens routed to them.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
+from torch import distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as shd
 from .layers import MLP, dense_init, dtype_of, empty_param, mlp_apply, \
     pdtype_of
 
@@ -132,8 +137,18 @@ def aux_loss(r: Route, cfg: ModelConfig):
 
 def moe_apply(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss); the reference's one-device path
-    (``_moe_apply_gspmd``)."""
+    """x: (B, S, D) -> (out, aux_loss).  Routes to the expert-parallel
+    path when a mesh with a >1 "model" axis is active."""
+    mesh = shd.active_mesh()
+    if mesh is not None and shd.axis_size("model") > 1:
+        return moe_apply_sharded(p, x, cfg, mesh=mesh,
+                                 dp_axes=shd.dp_axes_of(shd.current_rules()))
+    return _moe_apply_gspmd(p, x, cfg)
+
+
+def _moe_apply_gspmd(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """The reference's one-device path."""
     dt = dtype_of(cfg)
     b, s, d = x.shape
     t = b * s
@@ -184,3 +199,129 @@ def moe_apply_reference(p: MoE, x, cfg: ModelConfig):
     if p.has_shared:
         out = out + mlp_apply(p.shared, xt, cfg)
     return out.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel path (the reference's shard_map path).
+#
+# Activations are replicated across "model", so dispatch needs NO token
+# all-to-all: each model rank extracts the tokens routed to ITS experts
+# (local gather + capacity scatter), runs the expert FFN locally, and the
+# ranks' partial outputs are summed over "model".  Communication per layer
+# = one (T_local, D) all-reduce.  Here each rank runs this as its own code
+# with explicit collectives (``distributed.sharding``): x holds the rank's
+# rows of the batch (its DP block), the same on every rank of a model group.
+# ---------------------------------------------------------------------------
+
+def local_route(expert_ids, e_loc: int, rank_id: int, cap_local: int):
+    """This model rank's part of the routing of ``expert_ids`` (T, k):
+    (flat_e, rank, keep, mine), each (T*k,).  ``mine``: the assignment
+    goes to one of this rank's experts; ``flat_e``: its local expert (the
+    sentinel ``e_loc`` where not mine); ``rank``: its place in that
+    expert's queue (the order the one-device path ranks in); ``keep``:
+    mine and rank < cap_local."""
+    local_ids = expert_ids.reshape(-1) - rank_id * e_loc
+    mine = (local_ids >= 0) & (local_ids < e_loc)
+    flat_e = torch.where(mine, local_ids, e_loc)               # sentinel last
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(e_loc + 1, device=flat_e.device))
+    rank = torch.empty_like(flat_e)
+    rank[order] = torch.arange(n, device=flat_e.device) \
+        - group_start[sorted_e]
+    return flat_e, rank, mine & (rank < cap_local), mine
+
+
+def _moe_dispatch_local(xt, gate_vals, expert_ids, we_g, we_u, we_d, *,
+                        cap_local: int, rank_id: int, dt):
+    """Per-rank body.  xt: (T_loc, D); gate_vals, expert_ids: (T_loc, k);
+    we_*: this rank's (E_loc, D, F) / (E_loc, F, D) block, experts
+    ``rank_id * E_loc`` on.  Returns the rank's partial output (T_loc, D):
+    the sum over the model ranks is the reference's body (its psum)."""
+    t_loc, d = xt.shape
+    e_loc = we_g.shape[0]
+    k = expert_ids.shape[-1]
+    flat_e, rank, keep, mine = local_route(expert_ids, e_loc, rank_id,
+                                           cap_local)
+    flat_g = torch.where(mine, gate_vals.reshape(-1), 0.0)
+    flat_tok = torch.arange(t_loc, device=xt.device).repeat_interleave(k)
+
+    kept = torch.nonzero(keep).squeeze(1)
+    ebuf = torch.zeros((e_loc, cap_local, d), dtype=dt,
+                       device=xt.device).index_put(
+        (flat_e[kept], rank[kept]), xt[flat_tok[kept]].to(dt))
+    h = F.silu(torch.bmm(ebuf, we_g.to(dt))) * torch.bmm(ebuf, we_u.to(dt))
+    y = torch.bmm(h, we_d.to(dt))                              # (E_loc, C, D)
+
+    gathered = y[torch.clamp(flat_e, max=e_loc - 1),
+                 torch.clamp(rank, max=cap_local - 1)]
+    contrib = torch.where(keep[:, None], gathered * flat_g[:, None].to(dt),
+                          0.0)
+    return contrib.reshape(t_loc, k, d).sum(dim=1)
+
+
+def expert_shardings(model: nn.Module, mesh) -> dict:
+    """{name: NamedSharding} placing every MoE layer's expert weights on
+    dim 0 over "model" (each rank holds E / model experts), for
+    ``distributed.sharding.distribute_params``; every other parameter stays
+    whole on each rank."""
+    return {name: shd.NamedSharding(mesh, ("model", None, None))
+            for name, _ in model.named_parameters()
+            if name.rsplit(".", 1)[-1] in shd.EXPERT}
+
+
+def _expert_block(w, mesh, model_axis: str):
+    """This rank's experts of ``w``, a DTensor placed by
+    ``expert_shardings``."""
+    want = shd.placements((model_axis, None, None), mesh)
+    if not isinstance(w, DTensor) or tuple(w.placements) != want:
+        raise ValueError(f"expert weights must be DTensors placed {want} "
+                         f"(distribute_params(model, expert_shardings(model, "
+                         f"mesh))), not {getattr(w, 'placements', 'whole')}")
+    return w.to_local()
+
+
+def moe_apply_sharded(p: MoE, x, cfg: ModelConfig, *, mesh, dp_axes,
+                      model_axis: str = "model"):
+    """Expert-parallel MoE over ``mesh`` (a DeviceMesh).  x: (B_loc, S, D),
+    this rank's rows (the batch split over ``dp_axes``).  Router and aux
+    stay global: the aux loss's f_e and p_e are means over the whole batch
+    (summed over the DP ranks).  Gradients: see ``distributed.sharding``;
+    a rank's aux gradient covers its own rows, so the one-device gradient
+    is the sum over the DP ranks, as for the rest of its loss."""
+    dt = dtype_of(cfg)
+    b, s, d = x.shape
+    t_loc = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    model_group = mesh.get_group(model_axis)
+    n_model = shd.mesh_shape(mesh)[model_axis]
+    if e % n_model:
+        raise ValueError(f"{e} experts do not split over {n_model} ranks")
+    cap_local = capacity(cfg, t_loc)            # from the DP-local tokens
+
+    xt = x.reshape(t_loc, d)
+    probs = torch.softmax(xt.float() @ p.w_router, dim=-1)
+    gate_vals, expert_ids = top_k(probs, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    f_e = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / t_loc
+    p_e = probs.mean(dim=0)
+    dp_groups = shd.groups_of(mesh, dp_axes)
+    for g in dp_groups:
+        f_e = shd.reduce_from(f_e, g)
+        p_e = shd.reduce_from(p_e, g)
+    n_dp = math.prod(dist.get_world_size(g) for g in dp_groups)
+    aux = cfg.router_aux_coef * e * torch.sum((f_e / n_dp) * (p_e / n_dp))
+
+    out = _moe_dispatch_local(
+        shd.copy_to(xt, model_group), shd.copy_to(gate_vals, model_group),
+        expert_ids,
+        *(_expert_block(w, mesh, model_axis)
+          for w in (p.we_g, p.we_u, p.we_d)),
+        cap_local=cap_local, rank_id=mesh.get_local_rank(model_axis), dt=dt)
+    out = shd.reduce_from(out, model_group)
+    if p.has_shared:
+        out = out + mlp_apply(p.shared, xt, cfg)
+    return out.reshape(b, s, d), aux

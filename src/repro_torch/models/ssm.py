@@ -3,10 +3,10 @@ scan -> gated RMSNorm -> out-projection, and its one-token decode step.
 
 Counterpart of ``repro/models/ssm.py``.  Prefill runs the SSD scan through
 ``kernels.ssd.ssd_scan``: the hand-written kernel when ``use_flash_kernel``
-is set, else the plain chunked version.  The reference's ``ssd_shard_map``
-branch (``ssm.py:99-106``) only runs on a mesh whose "model" axis has more
-than one device, and its head blocks only shape the sharded lowering; on
-one device neither applies, so neither is ported.
+is set, else the plain chunked version.  With ``cfg.ssd_shard_map`` under a
+mesh whose "model" axis has more than one rank, the scan runs sharded over
+the heads (``ssd_apply_shard_map``), as the reference's does.  The
+reference's head blocks only shape its sharded lowering and are not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as shd
 from ..device import DeviceLike, resolve_device
 from .layers import dense_init, dtype_of, empty_param, pdtype_of, rmsnorm
 
@@ -109,8 +110,14 @@ def ssm_apply(p: SSM, x, cfg: ModelConfig):
 
     xh = xs.reshape(b, s, h, cfg.ssm_headdim)
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None, :])
-    y = ssd_scan(xh.float(), dt, p.a_log, bmat.float(), cmat.float(),
-                 chunk=cfg.ssm_chunk, use_kernel=cfg.use_flash_kernel)
+    mesh = shd.active_mesh()
+    if cfg.ssd_shard_map and mesh is not None and shd.axis_size("model") > 1:
+        y = ssd_apply_shard_map(
+            xh.float(), dt, p.a_log, bmat.float(), cmat.float(), cfg,
+            mesh=mesh, dp_axes=shd.dp_axes_of(shd.current_rules()))
+    else:
+        y = ssd_scan(xh.float(), dt, p.a_log, bmat.float(), cmat.float(),
+                     chunk=cfg.ssm_chunk, use_kernel=cfg.use_flash_kernel)
     y = y + xh.float() * p.d_skip[None, None, :, None]
     y = y.reshape(b, s, di).to(dt_)
     y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
@@ -165,3 +172,40 @@ def ssm_decode(p: SSM, x, cache: Dict, pos, cfg: ModelConfig
     y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
     return (y @ p.w_out.to(dt_))[:, None, :], cache
 
+
+# ---------------------------------------------------------------------------
+# Head-sharded SSD (the reference's shard_map path; cfg.ssd_shard_map).
+#
+# Everything the SSD needs is per-rank local: x heads and dt split over
+# "model", the batch over the DP axes (each rank holds its rows), B/C
+# replicated over "model".  So each rank scans its own heads with no
+# collective, and the head blocks are gathered for the rest of the layer,
+# whose gated norm runs over all of d_inner.  In the backward the gradients
+# of the replicated B and C are summed over "model" and those of the head
+# blocks gathered back (``distributed.sharding``).
+# ---------------------------------------------------------------------------
+
+def _ssd_local_body(xh, dt, a_log, bmat, cmat, *, chunk: int,
+                    tile_dtype=None):
+    """Per-rank: all local heads in one block, through the plain chunked
+    scan (the reference's ``ssd_chunked_jnp``, not the kernel)."""
+    from ..kernels.ssd import ref
+    with shd.manual_region():
+        return ref.ssd_chunked(xh, dt, a_log, bmat, cmat, chunk=chunk,
+                               tile_dtype=tile_dtype)
+
+
+def ssd_apply_shard_map(xh, dt, a_log, bmat, cmat, cfg: ModelConfig, *,
+                        mesh, dp_axes, model_axis: str = "model"):
+    """xh: (B, S, H, P); dt: (B, S, H); bmat/cmat: (B, S, N), every rank of
+    a model group holding the same (its DP rows, all heads) -> y (B, S, H,
+    P), the same on each.  ``dp_axes`` name the axes the batch is split
+    over; the scan is per row, so no DP collective is needed."""
+    group = mesh.get_group(model_axis)
+    y = _ssd_local_body(
+        shd.split_to(xh, 2, group), shd.split_to(dt, 2, group),
+        shd.split_to(a_log, 0, group),
+        shd.copy_to(bmat, group), shd.copy_to(cmat, group),
+        chunk=cfg.ssm_chunk,
+        tile_dtype=torch.bfloat16 if cfg.ssd_tile_bf16 else None)
+    return shd.gather_from(y, 2, group)

@@ -10,6 +10,9 @@ checkpoint written by either package restores in the other:
     mid-save never corrupts the latest checkpoint,
   * async save: a background thread serializes host copies snapshotted at
     call time (training continues),
+  * ELASTIC restore: the checkpoint stores the GLOBAL logical arrays;
+    loading places them onto whatever mesh and placements the new job
+    provides (``restore(..., shardings=)``), as DTensors,
   * resume metadata (step) for exact deterministic continuation,
   * retention: keep_last N checkpoints garbage-collected.
 
@@ -18,8 +21,8 @@ arrays; a leaf's name is its path joined by "/", keys in sorted order as
 JAX flattens them.  The port's train state goes through
 ``models/convert.state_to_jax`` first, so its leaves carry the reference's
 names (``params/groups/b0/attn/wq`` stacked over groups, ``opt/mu/...``,
-``opt/step``).  The reference's resharding on restore (``shardings``) has no
-counterpart on one device.
+``opt/step``).  A tree of DTensors is saved by gathering it first
+(``full_tensor``) and writing it from one process.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import distribute
 
 MANIFEST = "manifest.json"
 
@@ -162,13 +167,19 @@ def load_manifest(path: str) -> Dict:
         return json.load(f)
 
 
-def restore(path: str, like: Mapping, *, verify: bool = True
-            ) -> Tuple[Dict, Dict]:
+def restore(path: str, like: Mapping, *, shardings: Optional[Mapping] = None,
+            verify: bool = True) -> Tuple[Dict, Dict]:
     """Restore into the structure of ``like`` (a tree whose leaves have
     ``shape`` and ``dtype``: tensors, or numpy arrays of a dtype torch
     has).  Each leaf comes back as a CPU tensor of its ``like`` leaf's
-    dtype.  Returns (tree, manifest)."""
+    dtype.  ``shardings``: optional tree of ``distributed.sharding
+    .NamedSharding`` matching ``like`` (a leaf may be left out): such a
+    leaf comes back as a DTensor placed so on its mesh, ELASTIC: any mesh
+    works, whatever mesh wrote the checkpoint (every rank calls restore,
+    reads the whole leaf and keeps its block).  Returns (tree,
+    manifest)."""
     manifest = load_manifest(path)
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     restored = {}
     with np.load(os.path.join(path, "shards.npz")) as data:
         for name, spec in _flatten(like).items():
@@ -190,7 +201,9 @@ def restore(path: str, like: Mapping, *, verify: bool = True
                     f"model {tuple(spec.shape)}")
             want = spec.dtype if isinstance(spec.dtype, torch.dtype) \
                 else getattr(torch, str(spec.dtype))
-            restored[name] = t.to(want)
+            sharding = flat_shard.get(name)
+            restored[name] = t.to(want) if sharding is None \
+                else distribute(t.to(want), sharding)
     return _unflatten(restored), manifest
 
 

@@ -2,8 +2,10 @@
 version (the matmul also bit for bit across its tiles), danube-smoke's,
 mamba2-smoke's, qwen3moe-smoke's, dsv3-smoke's, rg-smoke's, whisper-smoke's
 and vlm-smoke's forward on the card against the same model on the CPU, and the paper's loop (calibrate_device
-and the quick validation suite) on the card.  Every test here is marked
-``gpu`` and skips without a card; on a card machine run them with
+and the quick validation suite) on the card; minicpm-, deepseek67b- and
+llama405b-smoke's kernel path against the plain path; the expert-parallel
+MoE layer on two ranks that share the card over gloo.  Every test here is
+marked ``gpu`` and skips without a card; on a card machine run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -612,3 +614,93 @@ def test_int8_moment_updates_on_card_match_cpu(cuda_device):
                               st["opt"], lr=1e-3)
         compare(states["card"], states["cpu"], 1, 1e-4)
     compare(states["free"], states["cpu"], None, 3e-4)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "deepseek-67b",
+                                  "llama3-405b"])
+def test_dense_smoke_kernel_path_matches_plain_on_card(cuda_device, arch):
+    """minicpm-smoke (MHA, the tied head, the logit scale), deepseek67b-
+    and llama405b-smoke (GQA 8): make_prefill's logits through the flash
+    kernel (one launch a layer; their head dims 12, 8 and 16 run padded or
+    as they are) against the plain path on the card."""
+    cfg = get_config(arch, smoke=True).replace(use_flash_kernel=True)
+    model = build(cfg, cuda_device).init(generator(0, cuda_device))
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=generator(1, "cpu")).to(cuda_device)
+    kernel.launches = 0
+    got = serve_step.make_prefill(model)(tokens)
+    torch.cuda.synchronize()
+    assert kernel.launches == cfg.n_layers
+    model.cfg = cfg.replace(use_flash_kernel=False)
+    want = serve_step.make_prefill(model)(tokens)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+SHARDED_MOE_FIELDS = dict(name="m", family="moe", n_layers=1, d_model=64,
+                          n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+                          pattern=("moe",), n_experts=8, top_k=2,
+                          d_expert=48, capacity_factor=4.0)
+
+
+def _sharded_moe_rank(rank: int, world: int, run_dir: str) -> None:
+    """One of two ranks on the card over gloo: the MoE layer with its
+    experts split over "model"."""
+    import datetime
+    import os
+    from torch import distributed as dist
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{run_dir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        cfg = ModelConfig(**SHARDED_MOE_FIELDS)
+        inputs = torch.load(os.path.join(run_dir, "inputs.pt"))
+        mesh = make_test_mesh(model=world)
+        layer = moe.MoE(cfg, "cuda")
+        layer.load_state_dict(inputs["params"])
+        shd.distribute_params(layer, moe.expert_shardings(layer, mesh))
+        with shd.use_mesh(mesh):
+            out, aux = moe.moe_apply(layer, inputs["x"].cuda(), cfg)
+        torch.save({"out": out.cpu(), "aux": aux.cpu()},
+                   os.path.join(run_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_rank_sharded_moe_layer_on_card(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (a (1 x 2) mesh, 4 experts a
+    rank): the expert-parallel layer against the one-device layer on the
+    card, at capacity E/k (tests/test_moe.py's tolerance)."""
+    import multiprocessing
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import moe
+    cfg = ModelConfig(**SHARDED_MOE_FIELDS)
+    layer = moe.MoE(cfg, "cpu")
+    layer.init(generator(0, "cpu"), cfg)
+    x = torch.randn(4, 128, cfg.d_model, generator=generator(1, "cpu"))
+    torch.save({"params": layer.state_dict(), "x": x}, tmp_path / "inputs.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_sharded_moe_rank, args=(r, 2, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+    assert not hung and all(p.exitcode == 0 for p in procs), \
+        [p.exitcode for p in procs]
+    want, want_aux = moe.moe_apply(layer.to(cuda_device), x.to(cuda_device),
+                                   cfg)
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        torch.testing.assert_close(got["out"], want.cpu(), atol=2e-5,
+                                   rtol=2e-4)
+        torch.testing.assert_close(got["aux"], want_aux.cpu(), atol=1e-6,
+                                   rtol=1e-5)

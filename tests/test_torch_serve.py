@@ -176,6 +176,97 @@ def test_init_follows_reference_distributions():
     assert torch.equal(model.lm_head, again.lm_head)
 
 
+DENSE_ARCHS = ["minicpm-2b", "deepseek-67b", "llama3-405b"]
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_pair(request):
+    """(arch, reference model, its numpy params, the port model on them)
+    for the smoke configs of the three dense configs served last."""
+    arch = request.param
+    jax_cfg = jax_get_config(arch, smoke=True).replace(use_flash_kernel=True)
+    jax_model = jax_build(jax_cfg)
+    params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(0)))
+    cfg = get_config(arch, smoke=True).replace(use_flash_kernel=True)
+    return arch, jax_model, params, params_from_jax(params, cfg,
+                                                    device="cpu")
+
+
+def test_dense_configs_prefill_and_generate_match_reference(dense_pair):
+    """minicpm-smoke (MHA, its head tied to the embedding, logits scaled by
+    256/d_model), deepseek67b- and llama405b-smoke (GQA 8): the forward on
+    the flash path (S=128) and the plain path, make_prefill's last logits
+    and greedy_generate's tokens, from the reference's weights."""
+    arch, jax_model, params, model = dense_pair
+    tokens = _tokens(2, 128, seed=4)
+    want, _ = jax_model.forward(params, jnp.asarray(tokens))
+    with torch.inference_mode():
+        got, _ = model.forward(torch.from_numpy(tokens))
+        model.cfg = model.cfg.replace(use_flash_kernel=False)
+        plain, _ = model.forward(torch.from_numpy(tokens))
+        model.cfg = model.cfg.replace(use_flash_kernel=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    want_last = jax_serve_step.make_prefill(jax_model)(params,
+                                                       jnp.asarray(tokens))
+    got_last = serve_step.make_prefill(model)(torch.from_numpy(tokens))
+    np.testing.assert_allclose(got_last.numpy(), np.asarray(want_last),
+                               atol=TOL, rtol=TOL)
+    want_toks = jax_serve_step.greedy_generate(jax_model, params,
+                                               jnp.asarray(tokens), max_new=6)
+    got_toks = serve_step.greedy_generate(model, torch.from_numpy(tokens),
+                                          max_new=6)
+    np.testing.assert_array_equal(got_toks.numpy(), np.asarray(want_toks))
+
+
+def test_dense_configs_decode_matches_reference(dense_pair):
+    """One-token decode steps through the port's cache against the
+    reference's decode_step."""
+    arch, jax_model, params, model = dense_pair
+    tokens = _tokens(2, 12, seed=5)
+    jax_cache = jax_model.init_cache(2, 12)
+    cache = model.init_cache(2, 12)
+    step = serve_step.make_serve_step(model)
+    jax_step = jax.jit(jax_model.decode_step)
+    for t in range(12):
+        want, jax_cache = jax_step(params, jax_cache,
+                                   jnp.asarray(tokens[:, t:t + 1]), t)
+        got, cache = step(cache, torch.from_numpy(tokens[:, t:t + 1]), t)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                                   rtol=TOL)
+
+
+def test_minicpm_head_is_the_embedding_and_scales_apply():
+    """minicpm's tied head: params_from_jax loads ``tok_embed`` once and the
+    logits are x @ tok_embed^T * 256/d_model; its residual scale
+    1.4/sqrt(L) scales the init of the output projections, as the
+    reference's init does (the only place either package applies it)."""
+    cfg = get_config("minicpm-2b", smoke=True)
+    params = jax.tree.map(np.asarray, jax_build(jax_get_config(
+        "minicpm-2b", smoke=True)).init(jax.random.PRNGKey(0)))
+    assert "lm_head" not in params
+    model = params_from_jax(params, cfg, device="cpu")
+    assert "lm_head" not in model.state_dict()
+    assert model.param_count() == sum(a.size for a in
+                                      jax.tree.leaves(params))
+    x = torch.randn(3, cfg.d_model, generator=port_device.generator(0, "cpu"))
+    torch.testing.assert_close(model._logits(x),
+                               (x @ model.tok_embed.T) * (256.0 / 72.0))
+    assert cfg.logit_scale == 256.0 / 72.0
+    assert cfg.residual_scale == 1.4 / 2 ** 0.5
+    full = get_config("minicpm-2b")
+    assert (full.vocab, full.logit_scale, full.residual_scale) == \
+        (122753, 256.0 / 2304.0, 1.4 / 40 ** 0.5)
+    model = build(cfg, "cpu").init(port_device.generator(0, "cpu"))
+    block = model.groups[0]["b0"]
+    want = cfg.residual_scale * (cfg.n_heads * cfg.head_dim) ** -0.5
+    assert abs(float(block.attn.wo.std()) / want - 1) < 0.1
+    assert abs(float(block.mlp.wd.std())
+               / (cfg.residual_scale * cfg.d_ff ** -0.5) - 1) < 0.1
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_config_builds_in_the_port(arch):
     """The full config on the meta device (no memory) holds exactly the
