@@ -197,10 +197,26 @@ non-zero and prints no result):
                mamba2-1.3b with ``ssd_shard_map`` (32 of 64 heads a rank):
                fp32 depth 4 at S=8192, logits and every gradient at
                SSD_SHARD_TOL against the one-device plain path, then the
-               whole bf16 model timed; each collective's bytes a layer,
-               its measured gloo time and ``core/collectives`` price on
-               NVLink.  A rank that fails fails the phase.
-9. result    - the script's seconds; one JSON line listing every kernel
+               bf16 forward timed at SHARDED_MAMBA_TIMED_CUT; each
+               collective's bytes a layer, its measured gloo time and
+               ``core/collectives`` price on NVLink.  A rank that fails
+               fails the phase.
+9. dryrun    - the dry run (``launch/dryrun.py``), no card needed and no
+               kernel launched (counted across the phase): (a) three
+               production cells through its CLI, each a subprocess that
+               sees no card (DRYRUN_CELLS: danube train_4k at 16x16,
+               qwen3-moe decode_32k at 2x16x16, mamba2 long_500k at
+               16x16), each row's H100-priced terms, dominant term, useful
+               FLOP share, a rank's memory, ``fits`` and trace seconds; a
+               cell that fails or outlives DRYRUN_TIMEOUT_S fails the
+               phase; (b) meanwhile, the dry run's one-rank trace of each
+               training step the card ran (the train phase's (b), the
+               train_q8 phase's (c): same config, depth, batch and
+               moments): its peak beside ``max_memory_allocated``, gated
+               within DRYRUN_PEAK_BAND both ways, and its FLOPs over the
+               measured step as a share of the bf16 peak (danube's beside
+               the train phase's own share).
+10. result   - the script's seconds; one JSON line listing every kernel
                (a kernel's launches: the sum over the main paths' counted
                runs, each path's count under launches_by_path), then the
                last line
@@ -220,6 +236,7 @@ import math
 import multiprocessing
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -252,7 +269,10 @@ from repro_torch.kernels.ssd import (  # noqa: E402
     kernel as ssd_kernel, ref as ssd_ref)
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
-from repro_torch.launch.mesh import make_test_mesh, mesh_spec_of  # noqa: E402,E501
+from repro_torch.configs.registry import ShapeSpec  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    NVLINK_BYTES_PER_S_ONE_WAY, fake_world, make_test_mesh, mesh_spec_of)
 from repro_torch.launch.serve import serve, setup  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
@@ -2145,10 +2165,11 @@ def model_flops_per_step(cfg, params: dict, tokens: int) -> float:
     return (6 * weights + attention) * tokens
 
 
-def train_full() -> None:
+def train_full() -> dict:
     """(b) h2o-danube-1.8b at full width and depth, the shipped config
     (bf16, remat "block", attn_chunk 1024): FULL_STEPS steps through
-    ``launch.train.train`` with every launch count read around them."""
+    ``launch.train.train`` with every launch count read around them.
+    Returns the step as ``dryrun_vs_card`` reads it."""
     cfg = get_config(DANUBE)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2191,6 +2212,10 @@ def train_full() -> None:
           launches=launches)
     del out
     torch.cuda.empty_cache()
+    return {"arch": DANUBE, "cfg": cfg, "batch": FULL_BATCH,
+            "seq": FULL_SEQ, "moment_dtype": None,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "step_ms": step_ms, "flops_6nd": flops}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2360,12 +2385,13 @@ def q8_train(arch: str, cfg, *, steps: int, batch: int, seq: int,
     return out
 
 
-def train_q8() -> None:
+def train_q8() -> list:
     """(a) the int8-moment update, card against CPU, at danube-smoke and
     vlm-smoke; (b) danube at full width and depth as the train phase's (b),
     with int8 moments; (c) recurrentgemma-9b, qwen3-moe, llama-3.2-vision
     and whisper-tiny at full width with int8 moments, each at the first of
-    its depths that fits; (d) deepseek-v3's reckoning, not run."""
+    its depths that fits; (d) deepseek-v3's reckoning, not run.  Returns
+    (c)'s steps as ``dryrun_vs_card`` reads them."""
     t0 = time.perf_counter()
     reset_launches()
     for arch in (DANUBE, VISION):
@@ -2400,6 +2426,7 @@ def train_q8() -> None:
           loss_first3=f"{first:.4f}", loss_last3=f"{last:.4f}",
           bf16_moments=DANUBE_BF16_MOMENTS, launches=out["launches"])
 
+    measured = []
     for arch, (seq, cuts) in Q8_MODELS.items():
         for i, cut in enumerate(cuts):
             cfg = get_config(arch).replace(**cut)
@@ -2425,6 +2452,11 @@ def train_q8() -> None:
                   step_ms=[round(h["ms"], 3) for h in out["hist"]],
                   losses=[round(h["loss"], 6) for h in out["hist"]],
                   launches=out["launches"])
+            measured.append({
+                "arch": arch, "cfg": cfg, "batch": 1, "seq": seq,
+                "moment_dtype": "int8", "peak_gb": out["peak_gb"],
+                "step_ms": statistics.median(h["ms"]
+                                             for h in out["hist"][1:])})
             break
 
     # (d) one deepseek-v3 MoE layer with its embedding and head, counted on
@@ -2442,6 +2474,7 @@ def train_q8() -> None:
           card_gb=round(torch.cuda.get_device_properties(0).total_memory
                         / 1e9, 1))
     phase("train_q8", seconds=f"{time.perf_counter() - t0:.1f}")
+    return measured
 
 
 # ----------------------------------------------------------------- phase 9
@@ -2461,6 +2494,10 @@ SHARDED_MOE_CUT = {"n_layers": 2}
 # tiles of ~268 MB a layer (fp32, 32 heads, 32 chunks of 256), several of
 # them saved for the backward, on both ranks and the one-device run.
 SHARDED_MAMBA_CHECK_CUT = {"n_layers": 4}
+# its bf16 forward, timed at 12 of 48 layers: each layer's all-gather is
+# staged through the host by gloo (138 ms a layer), so the whole depth took
+# 5.92-7.14 s a run and told nothing the first 12 layers do not
+SHARDED_MAMBA_TIMED_CUT = {"n_layers": 12}
 SHARDED_TIMED_RUNS = 3
 # its whole-model forward spends ~5 s in 48 gloo all-gathers, so it is
 # timed twice after a warm-up
@@ -2468,12 +2505,6 @@ SHARDED_MAMBA_TIMED_RUNS = 2
 # the reference's own tolerance for ssd_shard_map against one device
 # (tests/test_perf_switches.py:58-59)
 SSD_SHARD_TOL = {"atol": 2e-4, "rtol": 2e-3}
-# NVLink 4 of the H100 SXM: 900 GB/s a card, both directions together (the
-# data sheet), for ``core/collectives.collective_time``'s price of the same
-# bytes between two cards; the h100 file carries no link rate.
-NVLINK_BYTES_PER_S_ONE_WAY = 450e9
-
-
 def sharded(entries: dict) -> None:
     """Spawn the ranks, wait for them (a rank that fails fails the phase at
     once and the others are stopped), and record each rank's launches."""
@@ -2794,9 +2825,9 @@ def sharded_moe(mesh, rank: int) -> dict:
 def sharded_mamba2(mesh, rank: int) -> dict:
     """mamba2-1.3b with ssd_shard_map over the two ranks: fp32 logits and
     every gradient at depth 4 held against rank 0's one-device plain path
-    at the reference's tolerance; the whole model's bf16 forward at S=8192
-    timed.  The sharded scan is the plain chunked one, as the reference's
-    is, so no kernel is launched (counted)."""
+    at the reference's tolerance; the bf16 forward at S=8192 timed at
+    ``SHARDED_MAMBA_TIMED_CUT``.  The sharded scan is the plain chunked
+    one, as the reference's is, so no kernel is launched (counted)."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     full = get_config(MAMBA2).replace(ssd_shard_map=True)
@@ -2847,6 +2878,7 @@ def sharded_mamba2(mesh, rank: int) -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
+    full = full.replace(**SHARDED_MAMBA_TIMED_CUT)
     model = build(full, "cuda").init(generator(SEED, "cuda"))
     tokens = batch["tokens"]
     logits = None
@@ -2884,6 +2916,138 @@ def sharded_mamba2(mesh, rank: int) -> dict:
     return {MAMBA2: launches}
 
 
+# ----------------------------------------------------------------- phase 10
+
+# The dry run (launch/dryrun.py).  (a) Production cells through its CLI, each
+# in a process of its own that sees no card, all started together: the
+# trace of a step on rank 0 of a fake 256- or 512-rank world, priced on the
+# h100 file.  (b) While they run, the dry run's memory and FLOP count of the
+# steps the train phases ran on the card, traced on a one-rank world with
+# the same config, depth, batch and moments; each predicted peak held
+# within DRYRUN_PEAK_BAND of torch.cuda.max_memory_allocated, both ways.
+DRYRUN_CELLS = ((DANUBE, "train_4k", False), (QWEN3, "decode_32k", True),
+                (MAMBA2, "long_500k", False))
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_PEAK_BAND = 1.5
+
+
+def start_dryrun_cells() -> list:
+    run_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cells = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = run_dir / f"{arch}.{shape}.jsonl"
+        log = run_dir / f"{arch}.{shape}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--json", str(out)]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                cmd + (["--multi-pod"] if multi_pod else []), cwd=ROOT,
+                env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        cells.append((arch, shape, out, log, proc))
+    return cells
+
+
+def finish_dryrun_cells(cells: list, t0: float) -> None:
+    """Wait for (a)'s processes (each killed at the deadline) and print
+    each cell's row; a cell that failed fails the phase."""
+    failed = []
+    for arch, shape, out, log, proc in cells:
+        left = t0 + DRYRUN_TIMEOUT_S - time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+        if rc != 0:
+            failed.append(f"{arch} {shape}: rc {rc}: "
+                          f"{log.read_text()[-2000:]}")
+            continue
+        row = json.loads(out.read_text().splitlines()[-1])
+        mem = row["memory"]
+        phase("dryrun", arch=arch, shape=shape, mesh=row["mesh"],
+              status=row["status"], chips=row["chips"], torch=row["torch"],
+              compute_s=f"{row['compute_term_s']:.4e}",
+              memory_s=f"{row['memory_term_s']:.4e}",
+              collective_s=f"{row['collective_term_s']:.4e}",
+              dominant=row["dominant"],
+              useful_flops_ratio=f"{row['useful_flops_ratio']:.4f}",
+              rank_gb=round((mem["argument_bytes"] + mem["temp_bytes"])
+                            / 1e9, 3),
+              fits=row["fits"],
+              trace_seconds=f"{row['compile_seconds']:.1f}",
+              collectives={k: f"{v:.3e}"
+                           for k, v in row["collective_totals"].items()})
+    if failed:
+        raise AssertionError("dry-run cells failed:\n" + "\n".join(failed))
+
+
+def dryrun_vs_card(steps: list) -> None:
+    """(b): each step the train phases measured, traced on one rank."""
+    for st in steps:
+        t0 = time.perf_counter()
+        cfg = st["cfg"]
+        plan = {"rules": {}, "microbatches": 1,
+                "moment_dtype": st["moment_dtype"],
+                "accum_dtype": "float32", "remat": None}
+        with fake_world(1):
+            mesh = make_test_mesh(devices=1, model=1, device="cpu")
+            art = dryrun.lower_cell(
+                st["arch"], "train_4k", multi_pod=False, plan_override=plan,
+                accounting=False, mesh=mesh, cfg=cfg,
+                shape=ShapeSpec("card", "train", st["seq"], st["batch"]))
+        mem = art["memory_analysis"]
+        predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
+        ratio = predicted / st["peak_gb"]
+        flops = art["trace"].flops
+        secs = st["step_ms"] / 1e3
+        peak = PEAK_FLOPS[torch.bfloat16]
+        fields = {}
+        if "flops_6nd" in st:
+            fields["six_nd_bf16_share"] = \
+                f"{st['flops_6nd'] / secs / peak:.4f}"
+        phase("dryrun", arch=st["arch"], depth=repr(depth(cfg)),
+              batch=st["batch"], seq=st["seq"],
+              moments=st["moment_dtype"] or cfg.param_dtype,
+              predicted_peak_gb=f"{predicted:.3f}",
+              measured_peak_gb=f"{st['peak_gb']:.3f}",
+              ratio=f"{ratio:.4f}", band=DRYRUN_PEAK_BAND,
+              argument_gb=f"{mem['argument_bytes'] / 1e9:.3f}",
+              temp_gb=f"{mem['temp_bytes'] / 1e9:.3f}",
+              dryrun_flops=f"{flops:.4e}", step_ms=f"{st['step_ms']:.3f}",
+              dryrun_flops_bf16_share=f"{flops / secs / peak:.4f}",
+              **fields, trace_seconds=f"{time.perf_counter() - t0:.1f}")
+        if not 1 / DRYRUN_PEAK_BAND <= ratio <= DRYRUN_PEAK_BAND:
+            raise AssertionError(
+                f"{st['arch']}: the dry run's peak {predicted:.3f} GB is "
+                f"x{ratio:.4f} of the card's {st['peak_gb']:.3f} GB, "
+                f"outside x{DRYRUN_PEAK_BAND} either way")
+
+
+def dryrun_phase(steps: list) -> None:
+    t0 = time.perf_counter()
+    reset_launches()
+    cells = start_dryrun_cells()
+    try:
+        dryrun_vs_card(steps)
+    except BaseException:
+        for *_, proc in cells:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        raise
+    finish_dryrun_cells(cells, t0)
+    launches = read_launches()
+    check_launches("the dry run", launches, {name: 0 for name in KERNELS})
+    phase("dryrun", launches=launches,
+          seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -2911,11 +3075,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     reset_launches()
     train_checks()
-    train_full()
+    danube_step = train_full()
     check_launches("the train phase", read_launches(),
                    {name: 0 for name in KERNELS})
-    train_q8()
+    q8_steps = train_q8()
     sharded(entries)
+    dryrun_phase([danube_step] + q8_steps)
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ import torch
 from torch import distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 Axes = Union[None, str, Tuple[str, ...]]
@@ -170,6 +170,20 @@ def axis_size(name: str) -> int:
     return int(shape.get(name, 1))
 
 
+def logical_rank(logical: str) -> Tuple[int, int]:
+    """(this rank's index, the number of ranks) along the mesh axes the
+    active rules split ``logical`` over, major axis first; (0, 1) where it
+    is not split."""
+    mesh, rules = _ACTIVE_MESH.get(), _RULES.get() or {}
+    axes = rules.get(logical)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+    rank, n = 0, 1
+    for a in axes:
+        size = int(mesh_shape(mesh)[a])
+        rank, n = rank * size + mesh.get_local_rank(a), n * size
+    return rank, n
+
+
 def dp_axes_of(rules: Optional[dict]) -> Tuple[str, ...]:
     """The mesh axes the batch is split over, as a tuple (the reference's
     ``dp_axes`` of the sharded paths)."""
@@ -239,8 +253,170 @@ def constrain(x, logical: Tuple[Optional[str], ...]):
     if mesh is None or rules is None or _MANUAL.get() \
             or not isinstance(x, DTensor):
         return x
-    spec = tuple(rules.get(a) if a else None for a in logical)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return x.redistribute(mesh, placements(_resolve(logical), mesh))
+
+
+def _resolve(logical) -> Spec:
+    rules = _RULES.get() or {}
+    return tuple(rules.get(a) if a else None for a in logical)
+
+
+def per_shard(fn, args, logical, out_logical, out_shape=None, *,
+              reduces: Tuple[str, ...] = ()):
+    """``fn(*args)``, run on this rank's blocks where the reference's
+    partitioner keeps the work local and DTensor has no sharding rule for
+    it (a reshape that splits a sharded dim, a scan, a decode step).
+
+    On plain tensors, outside use_mesh() or in a manual region, this is
+    ``fn(*args)``.  Otherwise each DTensor arg is redistributed to the
+    placements of its logical axes (``logical``, one tuple per arg, None
+    for an arg that is not a DTensor), ``fn`` runs on the local blocks,
+    and its output is this rank's block of a DTensor placed by
+    ``out_logical`` (one tuple, or one per output when ``fn`` returns a
+    tuple) with the global ``out_shape`` (default: inferred from an even
+    split).
+
+    Gradients: the ranks along a mesh axis that any arg or output is split
+    over each do their own share of the work, so an arg replicated over
+    that axis gets a partial gradient there (summed when it flows back
+    into its DTensor), as ``copy_to`` does.  ``reduces`` names the mesh
+    axes whose gradients ``fn`` sums itself (a region written with its own
+    collectives, as the reference's ``shard_map`` bodies); there the
+    gradients come back placed as the args."""
+    mesh = _ACTIVE_MESH.get()
+    if mesh is None or _RULES.get() is None or _MANUAL.get() \
+            or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    want = [None if lg is None else placements(_resolve(lg), mesh)
+            for lg in logical]
+    outs = out_logical if out_logical and all(
+        isinstance(lg, tuple) for lg in out_logical) else (out_logical,)
+    names = mesh.mesh_dim_names
+    split = {i for pl in want + [placements(_resolve(lg), mesh)
+                                 for lg in outs] if pl
+             for i, p in enumerate(pl)
+             if isinstance(p, Shard) and names[i] not in reduces}
+    local = []
+    for a, pl in zip(args, want):
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        grad = tuple(Partial() if i in split and isinstance(p, Replicate)
+                     else p for i, p in enumerate(pl))
+        local.append(_DenseGrad.apply(
+            a.redistribute(mesh, pl).to_local(grad_placements=grad)))
+    with manual_region():
+        out = fn(*local)
+    if isinstance(out, tuple):      # one logical spec and shape per output
+        return tuple(_placed(o, lg, sh, mesh)
+                     for o, lg, sh in zip(out, out_logical, out_shape))
+    return _placed(out, out_logical, out_shape, mesh)
+
+
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: a DTensor's gradient
+    block must have the layout of the DTensor it flows into."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _placed(local: torch.Tensor, logical, shape, mesh) -> DTensor:
+    pl = placements(_resolve(logical), mesh)
+    if shape is None:
+        return DTensor.from_local(local, mesh, pl, run_check=False)
+    # a block with the whole tensor's contiguous layout
+    local = local.contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole onto every rank (its redistribution to
+    Replicate on every mesh axis); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh,
+                          (Replicate(),) * x.device_mesh.ndim)
+
+
+def whole_units(x: torch.Tensor, dim: int, units: int) -> torch.Tensor:
+    """A DTensor whose ``dim`` is split over more ranks than it has
+    ``units`` (heads) to split into, or a number that does not divide
+    them, gathered along ``dim`` first, so that the reshape into units
+    stays on each rank (the reference's partitioner pads instead); a plain
+    tensor, or one that splits whole, as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pls = tuple(Replicate() if p.is_shard(dim) and units % mesh.size(i)
+                else p for i, p in enumerate(x.placements))
+    if pls == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, pls)
+
+
+def zeros_as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``t``'s shape in ``dtype`` on its device; for a DTensor,
+    placed as it is (each rank allocates its block)."""
+    if isinstance(t, DTensor):
+        return torch.zeros_like(t, dtype=dtype)
+    return torch.zeros(t.shape, dtype=dtype, device=t.device)
+
+
+def split_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, ...) -> (n, B / n, ...).  A DTensor split over its batch dim is
+    split on each rank: microbatch i is every rank's i-th block of rows
+    (the same sizes as the global split, with no collective)."""
+    if not isinstance(x, DTensor) or all(
+            not p.is_shard(0) for p in x.placements):
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+    local = x.to_local()
+    local = local.reshape(n, local.shape[0] // n, *local.shape[1:])
+    pls = tuple(Shard(p.dim + 1) if p.is_shard() else p
+                for p in x.placements)
+    shape = (n, x.shape[0] // n, *x.shape[1:])
+    return DTensor.from_local(local, x.device_mesh, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def set_slot(t: torch.Tensor, dim: int, index: int, value) -> None:
+    """``t[:, ..., index] = value`` along ``dim``, in place: a cache write.
+    On a DTensor sharded along ``dim`` only the rank that holds the slot
+    writes it (``value`` placed as ``t`` without that dim); the placement
+    is kept."""
+    if not isinstance(t, DTensor):
+        t[(slice(None),) * dim + (index,)] = value
+        return
+    mesh, pls = t.device_mesh, tuple(t.placements)
+    lo, size = 0, t.shape[dim]
+    for i, p in enumerate(pls):
+        if isinstance(p, Shard) and p.dim == dim:
+            size = -(-size // mesh.size(i))
+            lo += size * mesh.get_local_rank(i)
+    vpl = tuple(p if not isinstance(p, Shard) or p.dim < dim
+                else (Replicate() if p.dim == dim else Shard(p.dim - 1))
+                for p in pls)
+    if isinstance(value, DTensor):
+        value = value.redistribute(mesh, vpl).to_local()
+    local = t.to_local()
+    if lo <= index < lo + local.shape[dim]:
+        local[(slice(None),) * dim + (index - lo,)] = value
 
 
 def _axes_size(mesh_shape: Optional[dict], axes) -> int:
@@ -350,9 +526,13 @@ def param_specs(params, *, rules: Optional[dict] = None,
 
 
 def tree_shardings(mesh: DeviceMesh, specs):
-    """A tree (nested dicts) of specs -> the same tree of NamedSharding."""
+    """A tree (nested dicts and lists) of specs -> the same tree of
+    NamedSharding.  A spec is a tuple, so a list is a node of the tree (the
+    port's cache holds one entry per group)."""
     if isinstance(specs, Mapping):
         return {k: tree_shardings(mesh, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [tree_shardings(mesh, v) for v in specs]
     return NamedSharding(mesh, tuple(specs))
 
 

@@ -7,8 +7,9 @@ entry point.  It is compiled at first use, on the machine with the card, into
 compiler flags, so an edited source is rebuilt and an unchanged one is loaded
 from the earlier build.  Nothing here runs when a module is imported.
 
-``refuse_autograd`` is the wrappers' shared guard: a kernel launched through
-ctypes writes a fresh tensor that autograd cannot see into.
+``refuse_autograd`` and ``refuse_traced`` are the wrappers' shared guards:
+a kernel launched through ctypes writes a fresh tensor that autograd cannot
+see into, and reads memory that a traced tensor does not have.
 """
 from __future__ import annotations
 
@@ -47,6 +48,20 @@ def refuse_autograd(kernel: str, *tensors) -> None:
             f"gradients: call it under torch.no_grad() / "
             f"torch.inference_mode(), or train with use_flash_kernel=False "
             f"(the plain path), as the reference does")
+
+
+def refuse_traced(kernel: str, *tensors) -> None:
+    """Raise for a tensor with no memory of its own: a meta or fake tensor
+    (a dry run's trace) or a DTensor.  Its data pointer is not the card's,
+    and its plain version would hide that a traced step reached a
+    kernel."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+    for t in tensors:
+        if t.is_meta or isinstance(t, (FakeTensor, DTensor)):
+            raise ValueError(f"the {kernel} kernel runs on cpu or cuda "
+                             f"tensors, not a traced {type(t).__name__} on "
+                             f"{t.device}")
 
 
 def nvcc_path() -> str:

@@ -104,6 +104,7 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     does the work of the padded width (d = 40 runs at 64: 1.6x)."""
     global launches
     _build.refuse_autograd("flash attention", q, k, v)
+    _build.refuse_traced("flash attention", q, k, v)
     if q.device.type == "cpu":
         return ref.attention(q, k, v, sm_scale=sm_scale, causal=causal,
                              window=window)

@@ -111,6 +111,7 @@ def matmul_tiled(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
     whatever the tile."""
     global launches
     _build.refuse_autograd("matmul", a, b)
+    _build.refuse_traced("matmul", a, b)
     out_dtype = out_dtype or a.dtype
     if bk < 1:
         raise ValueError(f"block depth bk={bk} must be positive")

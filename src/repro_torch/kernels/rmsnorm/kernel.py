@@ -69,6 +69,7 @@ def rmsnorm_2d(x, w, *, eps: float = 1e-6):
     wider row one warp."""
     global launches
     _build.refuse_autograd("rmsnorm", x, w)
+    _build.refuse_traced("rmsnorm", x, w)
     if x.device.type == "cpu":
         return ref.rmsnorm(x, w, eps=eps)
     if x.device.type != "cuda":

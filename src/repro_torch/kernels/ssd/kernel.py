@@ -81,6 +81,7 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = DEFAULT_CHUNK):
     S must be a multiple of min(chunk, S)."""
     global launches
     _build.refuse_autograd("SSD scan", x, dt, a_log, b, c)
+    _build.refuse_traced("SSD scan", x, dt, a_log, b, c)
     chunk = min(chunk, x.shape[1])
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, a_log, b, c, chunk=chunk)

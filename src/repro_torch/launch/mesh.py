@@ -7,16 +7,38 @@ mesh; multi-pod adds a leading "pod" axis.  Each function takes the ranks
 of ``torch.distributed``'s default process group, which the caller has
 initialised (``init_process_group`` with its address, world size and rank):
 gloo over CPU processes in the tests; on one card, ranks that share it over
-gloo (NCCL refuses two ranks on one GPU).
+gloo (NCCL refuses two ranks on one GPU); for the dry run, the fake world of
+``fake_world``, which stands in for the reference's 512 placeholder devices.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 from torch import distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import DeviceLike, resolve_device
+
+
+# NVLink 4 of the H100 SXM: 900 GB/s a card, both directions together (the
+# data sheet); the h100 file carries no link rate.  One rate prices every
+# link: the dry run's collective term and ``core/collectives``' price of the
+# sharded paths' bytes.
+NVLINK_BYTES_PER_S_ONE_WAY = 450e9
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A fake process group of ``n`` ranks (no transport: a collective
+    returns at once with its output's shape), joined as rank 0, closed
+    again on exit, so that one process can open 256 ranks and then 512."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _world() -> int:

@@ -2,8 +2,8 @@
 bidirectional), prefill through the flash-attention kernel, cross-attention
 against a memory, and one-token decode against a KV cache.
 
-Counterpart of ``repro/models/attention.py``.  The reference's ``constrain``
-sharding hints have no counterpart on one device.
+Counterpart of ``repro/models/attention.py``, with its ``constrain``
+sharding hints (no-ops on a plain tensor).
 """
 from __future__ import annotations
 
@@ -11,12 +11,16 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain, logical_rank, per_shard, \
+    set_slot, whole_units
 from .layers import apply_rope, dense_init, dtype_of, empty_param, \
     pdtype_of, softcap
 
 NEG_INF = -1e30
+_HEADS = ("batch", "seq", "heads", None)
 
 
 class Attention(nn.Module):
@@ -42,7 +46,7 @@ class Attention(nn.Module):
 
 def _split_heads(x, n_heads, hd):
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd)
+    return whole_units(x, 2, n_heads).reshape(b, s, n_heads, hd)
 
 
 def _mask(sq: int, skv: int, *, causal: bool, window: int,
@@ -108,24 +112,42 @@ def attn_apply(p: Attention, x, cfg: ModelConfig, *, causal: bool = True,
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if isinstance(k, DTensor) and \
+            cfg.n_kv_heads % logical_rank("heads")[1]:
+        # the KV heads do not split over the ranks the query heads split
+        # over: each, summed whole first, is repeated for its group of
+        # query heads
+        g = cfg.n_heads // cfg.n_kv_heads
+        k, v = (constrain(t, ("batch", "seq", None, None))[:, :, :, None]
+                .expand(b, t.shape[1], cfg.n_kv_heads, g, hd)
+                .reshape(b, t.shape[1], cfg.n_heads, hd) for t in (k, v))
+    q = constrain(q, _HEADS)
+    k = constrain(k, _HEADS)
     scale = hd ** -0.5
 
-    if cfg.use_flash_kernel and kv_override is None and s % 128 == 0:
-        from ..kernels.flash_attention import flash_attention
-        # (B,S,H,D) -> (B,H,S,D) views; the kernel reads them through their
-        # strides.  Softcap is dropped on this path, as in the reference.
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), sm_scale=scale,
-                            causal=causal, window=window)
-        o = o.transpose(1, 2)
-    elif cfg.attn_chunk > 0 and s > cfg.attn_chunk and s % cfg.attn_chunk == 0:
-        o = _sdpa_chunked(q, k, v, scale=scale, causal=causal, window=window,
-                          logit_cap=cfg.attn_logit_softcap,
-                          chunk=cfg.attn_chunk)
-    else:
-        o = _sdpa(q, k, v, scale=scale, causal=causal, window=window,
-                  logit_cap=cfg.attn_logit_softcap)
-    return o.reshape(b, s, cfg.n_heads * hd) @ p.wo.to(dt)
+    def core(q, k, v):
+        if cfg.use_flash_kernel and kv_override is None and s % 128 == 0:
+            from ..kernels.flash_attention import flash_attention
+            # (B,S,H,D) -> (B,H,S,D) views; the kernel reads them through
+            # their strides.  Softcap is dropped on this path, as in the
+            # reference.
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), sm_scale=scale,
+                                causal=causal, window=window)
+            return o.transpose(1, 2)
+        if cfg.attn_chunk > 0 and s > cfg.attn_chunk \
+                and s % cfg.attn_chunk == 0:
+            return _sdpa_chunked(q, k, v, scale=scale, causal=causal,
+                                 window=window,
+                                 logit_cap=cfg.attn_logit_softcap,
+                                 chunk=cfg.attn_chunk)
+        return _sdpa(q, k, v, scale=scale, causal=causal, window=window,
+                     logit_cap=cfg.attn_logit_softcap)
+    # per (batch row, head): local on each rank under a mesh
+    o = per_shard(core, (q, k, v), (_HEADS,) * 3, _HEADS, q.shape)
+    o = whole_units(constrain(o, _HEADS), 2, cfg.n_heads)
+    out = o.reshape(b, s, cfg.n_heads * hd) @ p.wo.to(dt)
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +183,8 @@ def decode_attn_apply(p: Attention, x, cache: Dict, pos: int,
 
     size = cache["k"].shape[1]
     slot = pos % size if window > 0 else pos
-    cache["k"][:, slot] = k_new[:, 0]          # in place
-    cache["v"][:, slot] = v_new[:, 0]          # in place
+    set_slot(cache["k"], 1, slot, k_new[:, 0])          # in place
+    set_slot(cache["v"], 1, slot, v_new[:, 0])          # in place
     k, v = cache["k"], cache["v"]
 
     hkv = cfg.n_kv_heads
@@ -183,4 +205,6 @@ def decode_attn_apply(p: Attention, x, cache: Dict, pos: int,
     pbar = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", pbar, v.float())
     o = o.reshape(b, 1, cfg.n_heads * hd).to(dt)
-    return o @ p.wo.to(dt), cache
+    # the partial sums of a head-split product are summed here, as the
+    # reference's partitioner sums them
+    return constrain(o @ p.wo.to(dt), ("batch", "seq", "embed")), cache

@@ -1,9 +1,9 @@
 """Shared layers: init helpers, RMSNorm, rotary embeddings, SwiGLU MLP.
 
 Counterpart of ``repro/models/layers.py``.  Weights keep the reference's
-``(in, out)`` layout and are applied as ``x @ W``.  ``distributed.sharding
-.constrain`` has no counterpart: the port runs on one device, where the
-reference's constraints are no-ops.
+``(in, out)`` layout and are applied as ``x @ W``.  The reference's
+``constrain`` hints stand where its do: they return a plain tensor as it
+is, and redistribute a DTensor under ``distributed.sharding.use_mesh``.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import constrain
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -105,7 +106,8 @@ class MLP(nn.Module):
 def mlp_apply(p: MLP, x, cfg: ModelConfig):
     dt = dtype_of(cfg)
     h = nn.functional.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
-    return h @ p.wd.to(dt)
+    h = constrain(h, ("batch", "seq", "ffn"))
+    return constrain(h @ p.wd.to(dt), ("batch", "seq", "embed"))
 
 
 def softcap(x, cap: float):

@@ -13,6 +13,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import constrain, per_shard, set_slot
 from .attention import NEG_INF
 from .layers import apply_rope, dense_init, dtype_of, empty_param, pdtype_of
 
@@ -83,17 +84,24 @@ def _attend(q_nope, q_rope, latent, k_rope, p: MLA, cfg: ModelConfig, *,
     k = (latent @ p.w_uk.to(dt)).reshape(b, skv, cfg.n_heads, hd)
     v = (latent @ p.w_uv.to(dt)).reshape(b, skv, cfg.n_heads, hd)
     scale = (hd + cfg.rope_head_dim) ** -0.5
-    s = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(), k.float())
-         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
-                        k_rope.float())) * scale
-    if causal:
-        q_ids = torch.arange(sq, device=s.device)[:, None]
-        k_ids = torch.arange(skv, device=s.device)[None, :]
-        s = torch.where((k_ids <= q_ids)[None, None], s, NEG_INF)
-    if valid is not None:
-        s = torch.where(valid[None, None, None, :], s, NEG_INF)
-    pbar = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqs,bshd->bqhd", pbar, v.float())
+
+    def core(q_nope, q_rope, k, v, k_rope):
+        s = (torch.einsum("bqhd,bshd->bhqs", q_nope.float(), k.float())
+             + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                            k_rope.float())) * scale
+        if causal:
+            q_ids = torch.arange(sq, device=s.device)[:, None]
+            k_ids = torch.arange(skv, device=s.device)[None, :]
+            s = torch.where((k_ids <= q_ids)[None, None], s, NEG_INF)
+        if valid is not None:
+            s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        pbar = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", pbar, v.float())
+    # per (batch row, head): local on each rank under a mesh
+    heads = ("batch", "seq", "heads", None)
+    o = per_shard(core, (q_nope, q_rope, k, v, k_rope),
+                  (heads, heads, heads, heads, ("batch", "seq", None)),
+                  heads, (b, sq, cfg.n_heads, hd))
     return o.reshape(b, sq, cfg.n_heads * hd).to(dt)
 
 
@@ -103,8 +111,9 @@ def mla_apply(p: MLA, x, cfg: ModelConfig):
     positions = torch.arange(s, device=x.device)
     q_nope, q_rope = _queries(p, x, cfg, positions)
     latent, k_rope = _latent_kv(p, x, cfg, positions)
+    latent = constrain(latent, ("batch", "seq", None))
     o = _attend(q_nope, q_rope, latent, k_rope, p, cfg, causal=True)
-    return o @ p.wo.to(dtype_of(cfg))
+    return constrain(o @ p.wo.to(dtype_of(cfg)), ("batch", "seq", "embed"))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -130,10 +139,11 @@ def mla_decode(p: MLA, x, cache: Dict, pos: int, cfg: ModelConfig
     posv = torch.full((b, 1), pos, device=x.device)
     q_nope, q_rope = _queries(p, x, cfg, posv)
     lat_new, kr_new = _latent_kv(p, x, cfg, posv)
-    cache["latent"][:, pos] = lat_new[:, 0]
-    cache["k_rope"][:, pos] = kr_new[:, 0]
+    set_slot(cache["latent"], 1, pos, lat_new[:, 0])
+    set_slot(cache["k_rope"], 1, pos, kr_new[:, 0])
     latent, k_rope = cache["latent"], cache["k_rope"]
     valid = torch.arange(latent.shape[1], device=x.device) <= pos
     o = _attend(q_nope, q_rope, latent, k_rope, p, cfg, causal=False,
                 valid=valid)
-    return o @ p.wo.to(dtype_of(cfg)), cache
+    out = o @ p.wo.to(dtype_of(cfg))
+    return constrain(out, ("batch", "seq", "embed")), cache

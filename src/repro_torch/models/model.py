@@ -139,13 +139,17 @@ class LanguageModel(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _embed(self, tokens):
-        return nn.functional.embedding(tokens, self.tok_embed).to(
-            dtype_of(self.cfg))
+        # under a mesh the lookup reads a whole table, as the reference's
+        # partitioner gathers it ("involuntary full rematerialization")
+        x = nn.functional.embedding(tokens, shd.replicated(self.tok_embed)
+                                    ).to(dtype_of(self.cfg))
+        return shd.constrain(x, ("batch", "seq", "embed"))
 
     def _logits(self, x):
         cfg = self.cfg
         head = self.tok_embed.T if cfg.tie_embeddings else self.lm_head
-        return (x @ head.to(dtype_of(cfg))) * cfg.logit_scale
+        logits = (x @ head.to(dtype_of(cfg))) * cfg.logit_scale
+        return shd.constrain(logits, ("batch", "seq", "vocab"))
 
     def _group_apply(self, group: nn.ModuleDict, x, memory):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -312,12 +316,18 @@ class LanguageModel(nn.Module):
 
 def _masked_xent(logits, labels, valid):
     """Mean token cross entropy in fp32 over the ``valid`` positions (0 when
-    none is)."""
+    none is).  Under a mesh each rank takes its rows' whole logits."""
     safe = torch.where(valid, labels, 0).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = shd.per_shard(_token_nll, (logits, safe),
+                        (("batch", "seq", None), ("batch", "seq")),
+                        ("batch", "seq"), safe.shape)
     denom = torch.clamp(valid.sum(), min=1)
     return torch.where(valid, nll, 0.0).sum() / denom
+
+
+def _token_nll(logits, safe):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, safe[..., None])[..., 0]
 
 
 def _keep_weight_products(ctx, op, *args, **kwargs):

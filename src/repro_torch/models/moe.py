@@ -290,7 +290,40 @@ def moe_apply_sharded(p: MoE, x, cfg: ModelConfig, *, mesh, dp_axes,
     stay global: the aux loss's f_e and p_e are means over the whole batch
     (summed over the DP ranks).  Gradients: see ``distributed.sharding``;
     a rank's aux gradient covers its own rows, so the one-device gradient
-    is the sum over the DP ranks, as for the rest of its loss."""
+    is the sum over the DP ranks, as for the rest of its loss.
+
+    In a DTensor step (every parameter placed by the sharding rules) the
+    region runs on each rank's block: its rows, the whole router, and its
+    experts (gathered over the FSDP axis, as the reference's shard_map
+    in_specs gather them); the shared experts stay outside, on the
+    DTensors, as in the reference."""
+    if isinstance(x, DTensor):
+        def body(x, w_router, we_g, we_u, we_d):
+            return _moe_sharded_local(x, w_router, (we_g, we_u, we_d), cfg,
+                                      mesh=mesh, dp_axes=dp_axes,
+                                      model_axis=model_axis)
+        rows = ("batch", None, None)
+        experts = ("experts", None, None)
+        out, aux = shd.per_shard(
+            body, (x, p.w_router, p.we_g, p.we_u, p.we_d),
+            (rows, (None, None), experts, experts, experts),
+            (rows, ()), (x.shape, ()), reduces=(model_axis,))
+    else:
+        experts = tuple(_expert_block(w, mesh, model_axis)
+                        for w in (p.we_g, p.we_u, p.we_d))
+        out, aux = _moe_sharded_local(x, p.w_router, experts, cfg,
+                                      mesh=mesh, dp_axes=dp_axes,
+                                      model_axis=model_axis)
+    if p.has_shared:
+        out = out + mlp_apply(p.shared, x, cfg)
+    return out, aux
+
+
+def _moe_sharded_local(x, w_router, experts, cfg: ModelConfig, *, mesh,
+                       dp_axes, model_axis: str):
+    """A rank's part of ``moe_apply_sharded`` without the shared experts:
+    x (B_loc, S, D) its rows, ``w_router`` whole, ``experts`` its
+    (we_g, we_u, we_d) blocks."""
     dt = dtype_of(cfg)
     b, s, d = x.shape
     t_loc = b * s
@@ -302,7 +335,7 @@ def moe_apply_sharded(p: MoE, x, cfg: ModelConfig, *, mesh, dp_axes,
     cap_local = capacity(cfg, t_loc)            # from the DP-local tokens
 
     xt = x.reshape(t_loc, d)
-    probs = torch.softmax(xt.float() @ p.w_router, dim=-1)
+    probs = torch.softmax(xt.float() @ w_router, dim=-1)
     gate_vals, expert_ids = top_k(probs, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
@@ -317,11 +350,7 @@ def moe_apply_sharded(p: MoE, x, cfg: ModelConfig, *, mesh, dp_axes,
 
     out = _moe_dispatch_local(
         shd.copy_to(xt, model_group), shd.copy_to(gate_vals, model_group),
-        expert_ids,
-        *(_expert_block(w, mesh, model_axis)
-          for w in (p.we_g, p.we_u, p.we_d)),
+        expert_ids, *experts,
         cap_local=cap_local, rank_id=mesh.get_local_rank(model_axis), dt=dt)
     out = shd.reduce_from(out, model_group)
-    if p.has_shared:
-        out = out + mlp_apply(p.shared, xt, cfg)
     return out.reshape(b, s, d), aux

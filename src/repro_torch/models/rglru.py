@@ -18,9 +18,12 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed import sharding as shd
+from ..distributed.sharding import constrain, per_shard
 from .layers import dense_init, dtype_of, empty_param, pdtype_of
 
 RGLRU_C = 8.0
@@ -77,16 +80,42 @@ class RGLRU(nn.Module):
                                     scale=cfg.residual_scale))
 
 
-def _gates(p: RGLRU, x):
-    """x: (..., W) -> (r, i) each (..., W), fp32, through the block-diagonal
-    projections: block n of x meets ``w_gates[g, n]``, as the reference's
-    ``"...nb,gnbc->g...nc"``."""
+def _gates(w_gates, b_gates, x, lo: int = 0, hi=None):
+    """x: (..., W) -> (r, i) each (..., hi - lo), fp32: channels [lo, hi)
+    (default: all) of the block-diagonal projections, block n of x meeting
+    ``w_gates[g, n]`` as in the reference's ``"...nb,gnbc->g...nc"``.  A
+    range is whole blocks, or lies in one block (a rank's share when the
+    blocks are fewer than the ranks)."""
     lead, w = x.shape[:-1], x.shape[-1]
-    xb = x.reshape(-1, N_GATE_BLOCKS, w // N_GATE_BLOCKS).float()
-    g = torch.einsum("tnb,gnbc->gtnc", xb, p.w_gates.float())
-    g = g.reshape(2, *lead, w) + p.b_gates.float().reshape(
-        2, *([1] * len(lead)), w)
+    hi = w if hi is None else hi
+    bs = w // N_GATE_BLOCKS
+    n0, n1 = lo // bs, -(-hi // bs)
+    c0, c1 = lo - n0 * bs, hi - (n1 - 1) * bs
+    if n1 - n0 > 1 and (c0, c1) != (0, bs):
+        raise ValueError(f"channels [{lo}, {hi}) cut gate blocks of {bs}")
+    xb = x[..., n0 * bs:n1 * bs].reshape(-1, n1 - n0, bs).float()
+    g = torch.einsum("tnb,gnbc->gtnc", xb,
+                     w_gates[:, n0:n1, :, c0:c1].float())
+    g = g.reshape(2, *lead, hi - lo) + b_gates[:, lo:hi].float().reshape(
+        2, *([1] * len(lead)), hi - lo)
     return torch.sigmoid(g[0]), torch.sigmoid(g[1])
+
+
+def _gates_placed(p: RGLRU, x):
+    """``_gates`` of x (B, S, W); under a mesh each rank gathers its rows
+    of x whole and computes the channels it holds ("ffn")."""
+    if not isinstance(x, DTensor):
+        return _gates(p.w_gates, p.b_gates, x)
+    lanes = ("batch", "seq", "ffn")
+
+    def body(x, w, b):
+        rank, n_ranks = shd.logical_rank("ffn")
+        width = x.shape[-1]
+        share = -(-width // n_ranks)
+        return _gates(w, b, x, rank * share, min((rank + 1) * share, width))
+    return shd.per_shard(body, (x, p.w_gates, p.b_gates),
+                         (("batch", "seq", None), (None,) * 4, (None, None)),
+                         (lanes, lanes), (x.shape, x.shape))
 
 
 def _decay(p: RGLRU, r):
@@ -139,12 +168,15 @@ def rglru_apply(p: RGLRU, x, cfg: ModelConfig):
     xb = x @ p.wx.to(dt)                           # (B, S, W)
     gate = _gate_branch(p, x, dt)
     xb = _conv(xb, p.conv_w.to(dt), p.conv_b.to(dt))
-    r, i = _gates(p, xb)
+    r, i = _gates_placed(p, xb)
     a = _decay(p, r)                               # (B, S, W) fp32
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     u = beta * i * xb.float()
-    h = _scan(a, u).to(dt)
-    return (h * gate) @ p.w_out.to(dt)
+    # per (batch row, channel): local on each rank under a mesh
+    lanes = ("batch", "seq", "ffn")
+    h = per_shard(_scan, (a, u), (lanes, lanes), lanes, u.shape)
+    h = constrain(h.to(dt), lanes)
+    return constrain((h * gate) @ p.w_out.to(dt), ("batch", "seq", "embed"))
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, device=None) -> Dict:
@@ -166,10 +198,10 @@ def rglru_decode(p: RGLRU, x, cache: Dict, pos: int, cfg: ModelConfig
     hist = torch.cat([cache["conv"], xb[:, None, :]], dim=1)
     conv = torch.einsum("bwc,wc->bc", hist, p.conv_w.to(dt)) \
         + p.conv_b.to(dt)
-    r, i = _gates(p, conv)
+    r, i = _gates(p.w_gates, p.b_gates, conv)
     a = _decay(p, r)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     h = cache["h"].mul_(a).add_(beta * i * conv.float())
     cache["conv"].copy_(hist[:, 1:, :])
     out = ((h.to(dt) * gate) @ p.w_out.to(dt))[:, None, :]
-    return out, cache
+    return constrain(out, ("batch", "seq", "embed")), cache

@@ -30,6 +30,9 @@ def _dims(cfg: ModelConfig):
     return di, n, h, conv_ch
 
 
+_XH = ("batch", "seq", "heads", None)
+_BC = ("batch", "seq", None)
+
 class SSM(nn.Module):
     """Parameters with the reference's leaf names (``ssm_init``): stream
     projections ``w_z``, ``w_xs`` (d, d_inner), ``w_b``, ``w_c`` (d, N),
@@ -110,18 +113,30 @@ def ssm_apply(p: SSM, x, cfg: ModelConfig):
 
     xh = xs.reshape(b, s, h, cfg.ssm_headdim)
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None, :])
+    xh = shd.constrain(xh, _XH)
+    args = (xh.float(), dt, p.a_log, bmat.float(), cmat.float())
     mesh = shd.active_mesh()
     if cfg.ssd_shard_map and mesh is not None and shd.axis_size("model") > 1:
-        y = ssd_apply_shard_map(
-            xh.float(), dt, p.a_log, bmat.float(), cmat.float(), cfg,
-            mesh=mesh, dp_axes=shd.dp_axes_of(shd.current_rules()))
+        def body(*a):
+            return ssd_apply_shard_map(
+                *a, cfg, mesh=mesh,
+                dp_axes=shd.dp_axes_of(shd.current_rules()))
+        # a rank's rows, every head: the region splits the heads itself
+        rows = (("batch", "seq", None, None), ("batch", "seq", None),
+                (None,), _BC, _BC)
+        y = shd.per_shard(body, args, rows, rows[0], xh.shape,
+                          reduces=("model",))
     else:
-        y = ssd_scan(xh.float(), dt, p.a_log, bmat.float(), cmat.float(),
-                     chunk=cfg.ssm_chunk, use_kernel=cfg.use_flash_kernel)
+        def body(*a):
+            return ssd_scan(*a, chunk=cfg.ssm_chunk,
+                            use_kernel=cfg.use_flash_kernel)
+        # per (batch row, head): local on each rank under a mesh
+        y = shd.per_shard(body, args, (_XH, _XH[:3], ("heads",), _BC, _BC),
+                          _XH, xh.shape)
     y = y + xh.float() * p.d_skip[None, None, :, None]
     y = y.reshape(b, s, di).to(dt_)
     y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    return y @ p.w_out.to(dt_)
+    return shd.constrain(y @ p.w_out.to(dt_), ("batch", "seq", "embed"))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int,
@@ -170,7 +185,8 @@ def ssm_decode(p: SSM, x, cache: Dict, pos, cfg: ModelConfig
     y = y + xs * p.d_skip[None, :, None]
     y = y.reshape(b, di).to(dt_)
     y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    return (y @ p.w_out.to(dt_))[:, None, :], cache
+    out = (y @ p.w_out.to(dt_))[:, None, :]
+    return shd.constrain(out, ("batch", "seq", "embed")), cache
 
 
 # ---------------------------------------------------------------------------

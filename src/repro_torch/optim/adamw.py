@@ -14,6 +14,9 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import zeros_as
 
 
 def adamw_init(params: Mapping[str, torch.Tensor], *,
@@ -23,7 +26,7 @@ def adamw_init(params: Mapping[str, torch.Tensor], *,
     md = getattr(torch, moment_dtype) if moment_dtype else None
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=md or p.dtype, device=p.device)
+        return zeros_as(p, md or p.dtype)
 
     device = next(iter(params.values())).device
     return {"mu": {k: zeros(p) for k, p in params.items()},
@@ -38,7 +41,8 @@ NORM_SLICE = 1 << 26
 
 
 def _square_sum(g: torch.Tensor) -> torch.Tensor:
-    if g.numel() <= NORM_SLICE:
+    # a DTensor's fp32 copy is of its rank's block, sliced already
+    if g.numel() <= NORM_SLICE or isinstance(g, DTensor):
         return torch.sum(torch.square(g.float()))
     flat = g.reshape(-1)
     return sum(torch.sum(torch.square(flat[i:i + NORM_SLICE].float()))

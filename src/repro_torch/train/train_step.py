@@ -17,6 +17,7 @@ from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
+from ..distributed.sharding import split_rows, zeros_as
 from ..models import LanguageModel
 from ..models.convert import split_stacked
 from ..optim import adamw_update, error_feedback_update
@@ -114,7 +115,7 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
             if b % microbatches:
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
-            return x.reshape(microbatches, b // microbatches, *x.shape[1:])
+            return split_rows(x, microbatches)
         split = {k: sp(v) for k, v in batch.items()}
         return [{k: v[i] for k, v in split.items()}
                 for i in range(microbatches)]
@@ -123,8 +124,7 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
         params = state["params"]
         if microbatches > 1:
             device = next(iter(params.values())).device
-            gsum = {k: torch.zeros(p.shape, dtype=adt, device=device)
-                    for k, p in params.items()}
+            gsum = {k: zeros_as(p, adt) for k, p in params.items()}
             lsum = torch.zeros((), dtype=adt, device=device)
             nsum = torch.zeros((), dtype=adt, device=device)
             for mb in split_micro(batch):

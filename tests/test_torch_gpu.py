@@ -704,3 +704,40 @@ def test_two_rank_sharded_moe_layer_on_card(cuda_device, tmp_path):
                                    rtol=2e-4)
         torch.testing.assert_close(got["aux"], want_aux.cpu(), atol=1e-6,
                                    rtol=1e-5)
+
+
+def test_dry_run_peak_of_a_smoke_step_matches_the_card(cuda_device):
+    """danube-smoke, one training step at batch 16 x 1024, where attention's
+    fp32 scores make most of the memory: the dry run's peak on a one-rank
+    world (arguments and temporaries, ``launch.dryrun``) within x1.5 of
+    what the step allocates on the card, both ways."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    from repro_torch.train import train_step
+    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    b, s = 16, 1024
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, cuda_device).init(generator(0, cuda_device))
+    state = train_step.init_state(model)
+    step = train_step.make_train_step(model, lr=1e-3)
+    data = SyntheticLMData(cfg, batch=b, seq_len=s, seed=1)
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in data.batch_at(0).items()}
+    step(state, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    plan = {"rules": {}, "microbatches": 1, "moment_dtype": None,
+            "accum_dtype": "float32"}
+    with fake_world(1):
+        art = dryrun.lower_cell(
+            cfg.name, "train_4k", multi_pod=False, plan_override=plan,
+            accounting=False, cfg=cfg, shape=ShapeSpec("card", "train", s, b),
+            mesh=make_test_mesh(devices=1, model=1, device="cpu"))
+    mem = art["memory_analysis"]
+    ratio = (mem["argument_bytes"] + mem["temp_bytes"]) / measured
+    print(f"dry run {mem} against {measured} allocated: x{ratio:.4f}")
+    assert 1 / 1.5 <= ratio <= 1.5

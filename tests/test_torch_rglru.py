@@ -130,6 +130,24 @@ def test_lam_stays_fp32_under_bf16_params():
                               lam[0])
 
 
+@pytest.mark.parametrize("lo,hi", [(0, 64), (16, 48), (0, 8), (24, 28),
+                                   (60, 64)])
+def test_gates_of_a_channel_range_are_the_whole_gates_sliced(lo, hi):
+    """A rank's channels (whole blocks of 8, or inside one block, as when
+    the blocks are fewer than the ranks) equal the whole gates there."""
+    rng = np.random.default_rng(0)
+    w_gates = torch.tensor(rng.standard_normal((2, 8, 8, 8)),
+                           dtype=torch.float32)
+    b_gates = torch.tensor(rng.standard_normal((2, 64)), dtype=torch.float32)
+    x = torch.tensor(rng.standard_normal((2, 5, 64)), dtype=torch.float32)
+    whole = rglru._gates(w_gates, b_gates, x)
+    part = rglru._gates(w_gates, b_gates, x, lo, hi)
+    for a, b in zip(part, whole):
+        torch.testing.assert_close(a, b[..., lo:hi], atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="cut gate blocks"):
+        rglru._gates(w_gates, b_gates, x, 4, 12)
+
+
 def test_gate_branch_is_the_tanh_gelu():
     """jax.nn.gelu defaults to the tanh approximation; the erf form would
     be off by up to ~5e-4, far outside the mixer's tolerance."""

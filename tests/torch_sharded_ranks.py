@@ -1,7 +1,9 @@
-"""The ranks of ``tests/test_torch_sharded.py``: each a spawned process of a
-gloo process group on the CPU, which runs the port's sharded paths on its
-block of the inputs the test wrote and saves what it computed for the test
-to hold.  Imports no JAX (the test holds the reference's side itself).
+"""The ranks of ``tests/test_torch_sharded.py`` and
+``tests/test_torch_dtensor_step.py``: each a spawned process of a gloo
+process group on the CPU, which runs the port's sharded paths (or, for a
+case with ``steps``, whole DTensor steps) on its block of the inputs the
+test wrote and saves what it computed for the test to hold.  Imports no
+JAX (the tests hold the other side themselves).
 
     spawn(world, case_dir, mesh_shape, timeout) -> one dict per rank
 
@@ -19,14 +21,18 @@ import traceback
 import torch
 from torch import distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
-from repro_torch.models import moe, ssm
+from repro_torch.models import build, moe, ssm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.serve_step import make_serve_step
+from repro_torch.train.train_step import init_state, make_train_step
 
 # the layer cases' configs: MoE with a shared expert at capacity E/k (no
 # drops), and mamba2's SSD dims at chunk 8
@@ -79,6 +85,11 @@ def _rank(rank: int, world: int, case_dir: str, mesh_shape: tuple) -> None:
         pod = mesh_shape[0] if len(mesh_shape) == 3 else 1
         mesh = make_test_mesh(model=mesh_shape[-1], pod=pod, device="cpu")
         out = {"coords": _coords(mesh)}
+        if "steps" in inputs:
+            out["steps"] = {name: _dtensor_steps(mesh, case)
+                            for name, case in inputs["steps"].items()}
+            _finish(out, case_dir, rank)
+            return
         with shd.use_mesh(mesh):
             out["batch"] = _batch_case(mesh, inputs["moe"]["x"])
             out["moe"] = _moe_case(mesh, inputs["moe"])
@@ -99,13 +110,17 @@ def _rank(rank: int, world: int, case_dir: str, mesh_shape: tuple) -> None:
             _write_ckpt(inputs["write_ckpt"], world)
         if "restore" in inputs:
             out["restore"] = _restore(mesh, inputs["restore"])
-        torch.save(out, os.path.join(case_dir, f"rank{rank}.pt"))
-        dist.barrier()
-        dist.destroy_process_group()
+        _finish(out, case_dir, rank)
     except BaseException:
         with open(os.path.join(case_dir, f"rank{rank}.err"), "w") as f:
             f.write(f"rank {rank}:\n{traceback.format_exc()}")
         raise
+
+
+def _finish(out: dict, case_dir: str, rank: int) -> None:
+    torch.save(out, os.path.join(case_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _coords(mesh) -> dict:
@@ -257,4 +272,81 @@ def _restore(mesh, case) -> dict:
                      "placements": [(type(p).__name__, getattr(p, "dim", None))
                                     for p in w.placements],
                      "step": manifest["step"]}
+    return out
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, shd.DTensor) else t
+
+
+def _whole_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _whole_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole_tree(v) for v in tree]
+    return _whole(tree)
+
+
+def _placed(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_placed(v, s, mesh) for v, s in zip(tree, specs)]
+    return shd.distribute(tree, shd.NamedSharding(mesh, specs))
+
+
+def _dtensor_model(case, mesh):
+    """The smoke model of ``case`` with every parameter a DTensor placed by
+    ``param_specs``, read as the dry run reads it (``gather_fsdp``)."""
+    cfg = get_config(case["arch"], smoke=True).replace(**case["overrides"])
+    model = build(cfg, device="cpu")
+    model.load_state_dict(case["params"])
+    shd.distribute_params(model, shd.param_shardings(mesh, model))
+    dryrun.gather_fsdp(model, mesh)
+    return model
+
+
+def plain_name(name: str) -> str:
+    """A parameter's name without the parametrization's wrapping."""
+    return name.replace("parametrizations.", "").replace(".original", "")
+
+
+def _dtensor_steps(mesh, case) -> dict:
+    """A smoke model's steps with every parameter, the batch and the cache
+    placed by the sharding rules on ``mesh``, everything gathered whole:
+    the logits, the loss and every gradient, one train step's loss and
+    parameters, and two decode steps' logits and cache.  The step's plain
+    tensors (positions, masks) count as replicated, as in the dry run."""
+    out = {}
+    with shd.use_mesh(mesh), implicit_replication():
+        model = _dtensor_model(case, mesh)
+        batch = _placed(case["batch"], shd.batch_specs_tree(case["batch"]),
+                        mesh)
+        with torch.no_grad():
+            out["logits"] = _whole(model.forward(batch["tokens"])[0])
+        state = init_state(model)
+        loss, _ = model.loss_fn(batch)
+        loss.backward()
+        out["loss"] = _whole(loss.detach())
+        out["grads"] = {plain_name(n): _whole(p.grad)
+                        for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        step = make_train_step(model, lr=case["lr"],
+                               microbatches=case["microbatches"])
+        state, metrics = step(state, batch)
+        out["step_loss"] = _whole(metrics["loss"])
+        out["params"] = {plain_name(n): _whole(p.detach())
+                         for n, p in model.named_parameters()}
+        with torch.inference_mode():
+            model = _dtensor_model(case, mesh)
+            cache = _placed(case["cache"],
+                            shd.cache_specs_tree(case["cache"]), mesh)
+            serve = make_serve_step(model)
+            out["decode"] = []
+            for pos, tokens in case["decode"]:
+                tokens = _placed(tokens, shd.batch_specs_tree(tokens),
+                                 mesh)["tokens"]
+                logits, cache = serve(cache, tokens, pos)
+                out["decode"].append(_whole(logits))
+            out["cache"] = _whole_tree(cache)
     return out
