@@ -8,8 +8,10 @@ two largest dense models with their depth cut to fit the card), runs the
 paper's loop (microbenchmark -> calibrate -> predict -> validate) on the
 card, trains h2o-danube-1.8b at full width and depth, trains with int8 Adam
 moments at full width: danube, recurrentgemma-9b whole, and qwen3-moe and
-llama-3.2-vision with their depth cut, and runs the two sharded paths on
-two ranks that share the card (expert-parallel MoE, head-sharded SSD).
+llama-3.2-vision with their depth cut, runs the two sharded paths on
+two ranks that share the card (expert-parallel MoE, head-sharded SSD),
+prices three production cells with the dry run, and runs the port's
+contract gate and two of its examples.
 
     python3 chip_smoke.py
 
@@ -216,7 +218,19 @@ non-zero and prints no result):
                within DRYRUN_PEAK_BAND both ways, and its FLOPs over the
                measured step as a share of the bf16 peak (danube's beside
                the train phase's own share).
-10. result   - the script's seconds; one JSON line listing every kernel
+10. contracts - the port's contract gate, ``python -m repro_torch.analysis
+               --json``, as a subprocess under this interpreter on the tree
+               as this machine has it: errors, warnings and suppressed
+               findings and its seconds; any error or warning fails it.
+11. examples - two of the port's examples (``examples_torch/``) as
+               subprocesses on the card (EXAMPLES): ``quickstart.py``
+               (parts 1-2 on the host, then minicpm-2b's smoke config 30
+               steps) and ``train_lm.py --preset 100m`` (138M parameters,
+               16 x 512 tokens a step; TRAIN_LM_STEPS steps).  Each one's
+               wall seconds and first and last loss; a non-zero exit or a
+               last loss not below the first fails it.  They train on the
+               plain paths (no kernel is on the training path).
+12. result   - the script's seconds; one JSON line listing every kernel
                (a kernel's launches: the sum over the main paths' counted
                runs, each path's count under launches_by_path), then the
                last line
@@ -235,6 +249,7 @@ import json
 import math
 import multiprocessing
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -3048,6 +3063,77 @@ def dryrun_phase(steps: list) -> None:
           seconds=f"{time.perf_counter() - t0:.1f}")
 
 
+# ------------------------------------------------- phase: the contract gate
+
+CONTRACTS_TIMEOUT_S = 120
+
+
+def contracts() -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=CONTRACTS_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    report = json.loads(out.stdout)
+    counts = report["counts"]
+    phase("contracts", rc=out.returncode, errors=counts["errors"],
+          warnings=counts["warnings"], suppressed=counts["suppressed"],
+          seconds=f"{secs:.1f}")
+    left = [f"{f['path']}:{f['line']}: [{f['rule']}] {f['message']}"
+            for f in report["findings"] if not f["suppressed"]]
+    if out.returncode != 0 or counts["errors"] or counts["warnings"]:
+        raise AssertionError("the contract gate found:\n" + "\n".join(left)
+                             + out.stderr[-2000:])
+
+
+# ------------------------------------------------------ phase: the examples
+
+# 138M parameters at 16 x 512 tokens: ~6.8e12 FLOP a step, ~0.3 s a step
+# on an H100 in fp32; the example's checkpoints (1.7 GB each, every 10
+# steps and at the end) take longer than the steps.
+TRAIN_LM_STEPS = 20
+EXAMPLES = (
+    ("quickstart", ["examples_torch/quickstart.py"]),
+    ("train_lm", ["examples_torch/train_lm.py", "--preset", "100m",
+                  "--steps", str(TRAIN_LM_STEPS),
+                  "--ckpt-dir", "build/examples/train_lm_ckpt"]),
+)
+EXAMPLE_TIMEOUT_S = 300
+# quickstart's "  loss 5.022 -> 3.792", train_lm's "[train_lm] loss ..."
+LOSSES = re.compile(r"loss (\S+) -> (\S+)")
+
+
+def examples() -> None:
+    run_dir = ROOT / "build" / "examples"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_phase = time.perf_counter()
+    for name, args in EXAMPLES:
+        log = run_dir / f"{name}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            rc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                                stdout=f, stderr=subprocess.STDOUT,
+                                timeout=EXAMPLE_TIMEOUT_S).returncode
+        secs = time.perf_counter() - t0
+        text = log.read_text()
+        if rc != 0:
+            raise AssertionError(f"examples_torch: {name} exited {rc}:\n"
+                                 f"{text[-3000:]}")
+        first, last = (float(x) for x in LOSSES.findall(text)[-1])
+        rates = [float(r) for r in re.findall(r"\(([\d.]+) it/s\)", text)]
+        phase("examples", example=name, argv=" ".join(args[1:]),
+              seconds=f"{secs:.1f}", first_loss=f"{first:.4f}",
+              last_loss=f"{last:.4f}",
+              it_per_s=rates[-1] if rates else None)
+        if not last < first:
+            raise AssertionError(f"examples_torch: {name}: the last loss "
+                                 f"{last} is not below the first {first}")
+    phase("examples", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -3081,6 +3167,8 @@ def main() -> int:
     q8_steps = train_q8()
     sharded(entries)
     dryrun_phase([danube_step] + q8_steps)
+    contracts()
+    examples()
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -345,6 +345,7 @@ def _imports(path):
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples_torch").glob("*.py"))
     assert len(files) > 20
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
