@@ -1,0 +1,8 @@
+"""The card's idle share of the traced training window: the seconds in
+which no kernel, copy or set ran, over the window's."""
+
+
+def read(t):
+    if t.window_s <= 0 or not t.steps:
+        return None
+    return 100.0 * (t.window_s - t.busy_s) / t.window_s

@@ -1,0 +1,84 @@
+"""Toy cells for the CPU tests: a benchmark root in a directory of its own,
+holding a ``BENCHMARK.json`` and, under ``portbench/``, a configuration,
+a mix, a limits file and a per-layer metric for each toy cell, and nothing
+else.  It shows that a cell is added by adding files and entries."""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+DANUBE = {"name": "toy-danube", "family": "dense", "n_layers": 2,
+          "d_model": 64, "n_heads": 4, "n_kv_heads": 1, "head_dim": 16,
+          "d_ff": 160, "vocab": 128, "window": 100,
+          "pattern": ["local_attn"], "rope_theta": 10000.0,
+          "norm_eps": 1e-6, "tie_embeddings": False, "dtype": "float32",
+          "param_dtype": "float32", "remat": "none", "attn_chunk": 0}
+MAMBA = {"name": "toy-mamba", "family": "ssm", "n_layers": 2,
+         "d_model": 64, "n_heads": 0, "n_kv_heads": 0, "d_ff": 0,
+         "vocab": 128, "pattern": ["ssm"], "ssm_state": 16,
+         "ssm_headdim": 16, "ssm_expand": 2, "ssm_chunk": 16,
+         "conv_width": 4, "norm_eps": 1e-6, "tie_embeddings": True,
+         "dtype": "float32", "param_dtype": "float32", "remat": "none"}
+MIXES = {
+    "toy-prefill": {"kind": "prefill", "program": {"use_flash_kernel": True},
+                    "lengths": {"list": [48, 96], "always": [128]},
+                    "check_requests": 3},
+    "toy-train": {"kind": "train", "program": {"use_flash_kernel": False},
+                  "batch": 2, "seq": 32, "lr": 1e-3, "weight_decay": 0.1,
+                  "max_grad_norm": 1.0, "check_steps": 3},
+}
+# fp32 toy models read ~1e-6 against the reference on the CPU; the fp8
+# control reads 1e-3 or more on every number but the toy's token gap.
+PREFILL_LIMITS = {"logit_err": {"limit": 1e-4}, "token_gap": {"limit": 1e-4}}
+TRAIN_LIMITS = {"first_loss_gap": {"limit": 1e-5},
+                "grad_gap": {"limit": 1e-4}, "change_gap": {"limit": 1e-4}}
+CELLS = {"toy-danube.toy-prefill": ("toy-danube", "toy-prefill"),
+         "toy-mamba.toy-prefill": ("toy-mamba", "toy-prefill"),
+         "toy-danube.toy-train": ("toy-danube", "toy-train")}
+# a per-layer metric that a later PR would add as one file and one entry
+TOY_METRIC = '''def read(t):
+    return float(len(t.prompts) + t.steps) or None
+'''
+
+
+def write_root(root: Path) -> Path:
+    """The toy benchmark under ``root``; returns ``root``."""
+    here = root / "portbench"
+    for sub in ("configs", "traffic", "limits", "metrics"):
+        (here / sub).mkdir(parents=True, exist_ok=True)
+    for model in (DANUBE, MAMBA):
+        (here / "configs" / f"{model['name']}.json").write_text(
+            json.dumps({"model": model}))
+    for name, mix in MIXES.items():
+        (here / "traffic" / f"{name}.json").write_text(json.dumps(mix))
+    for cell, (_, mix) in CELLS.items():
+        limits = TRAIN_LIMITS if mix == "toy-train" else PREFILL_LIMITS
+        (here / "limits" / f"{cell}.json").write_text(json.dumps(limits))
+    (here / "metrics" / "toy_units.py").write_text(TOY_METRIC)
+    prefill = [c for c, (_, m) in CELLS.items() if m == "toy-prefill"]
+    train = [c for c, (_, m) in CELLS.items() if m == "toy-train"]
+    bench = {
+        "command": ["python3", "portbench/run.py"],
+        "paths": ["portbench"], "run_seconds": 1,
+        "configs": [{"name": m["name"], "source": "toy",
+                     "file": f"portbench/configs/{m['name']}.json",
+                     "reduced": [], "why": "toy"} for m in (DANUBE, MAMBA)],
+        "workloads": [{"name": c, "config": cfg, "traffic": mix,
+                       "chips": 1, "why": "toy"}
+                      for c, (cfg, mix) in CELLS.items()],
+        "end_to_end": [
+            {"name": "prompt_tok_s", "unit": "tokens/s", "better": "higher",
+             "bound": 0.03, "source": "host_clock", "workloads": prefill},
+            {"name": "ttft_p95_ms", "unit": "ms", "better": "lower",
+             "bound": 0.03, "source": "host_clock", "workloads": prefill},
+            {"name": "train_tok_s", "unit": "tokens/s", "better": "higher",
+             "bound": 0.03, "source": "host_clock", "workloads": train},
+            {"name": "setup_s", "unit": "s", "better": "lower",
+             "bound": 0.25, "source": "host_clock"}],
+        "per_layer": [
+            {"name": "toy_units", "unit": "1", "better": "higher",
+             "source": "program_counter", "layer": "toy",
+             "moves": "setup_s"}],
+    }
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
