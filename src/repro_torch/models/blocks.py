@@ -12,6 +12,10 @@ keyword (B, M, d), which only the cross-attention block reads.  Kinds:
   rglru       RG-LRU recurrent mixer + MLP
   cross_attn  self-attn + cross-attn(memory) + MLP (whisper dec / vlm)
   enc_attn    bidirectional attention + MLP (whisper encoder), no decode
+
+``AttnBlock`` and ``SsmBlock`` open the compute spans ``norm``,
+``attention``, ``mlp`` and ``ssm`` around their sub-layers
+(``obs.compute``); the residual adds stay in the enclosing span.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..obs.compute import compute_span
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -59,12 +64,18 @@ class AttnBlock(nn.Module):
             self.mlp.init(generator, cfg)
 
     def forward(self, x, cfg: ModelConfig, memory=None):
-        h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        x = x + attn_mod.attn_apply(self.attn, h, cfg, causal=self.causal,
+        with compute_span("norm"):
+            h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        with compute_span("attention"):
+            o = attn_mod.attn_apply(self.attn, h, cfg, causal=self.causal,
                                     window=self.window)
+        x = x + o
         if self.has_mlp:
-            h = rmsnorm(x, self.ln2, cfg.norm_eps)
-            x = x + mlp_apply(self.mlp, h, cfg)
+            with compute_span("norm"):
+                h = rmsnorm(x, self.ln2, cfg.norm_eps)
+            with compute_span("mlp"):
+                o = mlp_apply(self.mlp, h, cfg)
+            x = x + o
         return x, _zero(x)
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
@@ -158,8 +169,11 @@ class SsmBlock(nn.Module):
         self.ssm.init(generator, cfg)
 
     def forward(self, x, cfg: ModelConfig, memory=None):
-        h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        return x + ssm_mod.ssm_apply(self.ssm, h, cfg), _zero(x)
+        with compute_span("norm"):
+            h = rmsnorm(x, self.ln1, cfg.norm_eps)
+        with compute_span("ssm"):
+            o = ssm_mod.ssm_apply(self.ssm, h, cfg)
+        return x + o, _zero(x)
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_len: int,
                    device) -> Dict:

@@ -8,14 +8,22 @@ once per logical client request and carried:
   ``trace_id`` field (binary framing v1 is untouched; v1 payloads
   without the field still decode).
 
-Spans are lightweight completed-interval records (monotonic start,
-duration, small attribute dict) kept in a bounded process-global ring
-so tests and the demo can ask "which spans did trace X produce?"
-without an external collector.  Recording honours the metrics kill
-switch (``metrics.set_enabled(False)`` silences spans too).
+Spans are lightweight completed-interval records (start, duration,
+small attribute dict, their own id and their parent's) kept in a bounded
+process-global ring so tests and the demo can ask "which spans did trace
+X produce?" without an external collector.  Recording honours the
+metrics kill switch (``metrics.set_enabled(False)`` silences spans too).
+
+A span starts on ``time.time_ns()``, the clock of ``torch.profiler``'s
+events, so it lays over a profiler trace as it stands; its duration is
+taken on ``time.perf_counter_ns()``.  The ring also holds the model's
+compute spans (:mod:`.compute`): a prefill or a training step and its
+layers, recorded only while a ``torch.profiler`` trace is being taken,
+on the same clock, each with the interval its work took on the device.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import random
@@ -66,16 +74,34 @@ class Span(NamedTuple):
 
     name: str
     trace_id: str
-    start_s: float          # time.monotonic() at entry
+    start_ns: int           # time.time_ns() at entry
     duration_s: float
     attrs: Dict
+    span_id: int = 0
+    parent_id: int = 0      # the span that opened this one; 0 for a root
+    device: Optional[object] = None     # compute spans: its seconds there
+
+    @property
+    def start_s(self) -> float:
+        return self.start_ns / 1e9
+
+    @property
+    def end_ns(self) -> int:
+        return self.start_ns + round(self.duration_s * 1e9)
+
+    @property
+    def device_s(self) -> Optional[float]:
+        """Seconds on the device (compute spans only)."""
+        return None if self.device is None else self.device.seconds
 
 
-_SPANS_MAX = 4096
+#: a traced window holds ~100 requests of ~100 compute spans each
+_SPANS_MAX = 1 << 16
 #: deque appends are thread-safe and maxlen evicts in C — the record
 #: path takes no lock; readers snapshot with a retry loop because
 #: list(deque) raises RuntimeError if it races a concurrent append
 _SPANS: deque = deque(maxlen=_SPANS_MAX)
+_IDS = itertools.count(1)
 
 
 def record_span(name: str, trace_id: Optional[str], duration_s: float,
@@ -84,8 +110,9 @@ def record_span(name: str, trace_id: Optional[str], duration_s: float,
     if not trace_id or not metrics.REGISTRY.enabled:
         return None
     if start_s is None:
-        start_s = time.monotonic() - duration_s
-    sp = Span(name, trace_id, start_s, duration_s, attrs)
+        start_s = time.time_ns() / 1e9 - duration_s
+    sp = Span(name, trace_id, round(start_s * 1e9), duration_s, attrs,
+              next(_IDS))
     _SPANS.append(sp)
     return sp
 
@@ -112,12 +139,12 @@ def clear_spans() -> None:
 @contextmanager
 def span(name: str, trace_id: Optional[str], **attrs):
     """``with span("client.attempt", tid): ...`` records on exit."""
-    t0 = time.monotonic()
+    t0, c0 = time.time_ns(), time.perf_counter_ns()
     try:
         yield
     finally:
-        record_span(name, trace_id, time.monotonic() - t0,
-                    start_s=t0, **attrs)
+        record_span(name, trace_id, (time.perf_counter_ns() - c0) / 1e9,
+                    start_s=t0 / 1e9, **attrs)
 
 
 def slow_log(record: Dict,

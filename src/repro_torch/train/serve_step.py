@@ -11,6 +11,7 @@ from typing import Callable
 import torch
 
 from ..models import LanguageModel
+from ..obs.compute import compute_span
 
 
 def make_prefill(model: LanguageModel) -> Callable:
@@ -20,12 +21,17 @@ def make_prefill(model: LanguageModel) -> Callable:
     ``use_flash_kernel`` is set: flash attention (S % 128 == 0) in the
     self-attention of the attention and cross-attention blocks and in the
     encoder (M % 128 == 0), the SSD scan in the ssm blocks.  The sequential
-    ``model.prefill`` of ``greedy_generate`` fills a cache instead."""
+    ``model.prefill`` of ``greedy_generate`` fills a cache instead.
+
+    Each call is the root compute span ``prefill`` (attr ``tokens``, B·S)
+    while a profiler trace is being taken."""
 
     @torch.inference_mode()
     def prefill(tokens, memory_embeds=None):
-        logits, _ = model.forward(tokens, memory_embeds=memory_embeds)
-        return logits[:, -1, :]
+        with compute_span("prefill", "tokens", tokens.numel(),
+                          device=tokens.device):
+            logits, _ = model.forward(tokens, memory_embeds=memory_embeds)
+            return logits[:, -1, :]
 
     return prefill
 

@@ -20,6 +20,7 @@ import torch
 from ..distributed.sharding import split_rows, zeros_as
 from ..models import LanguageModel
 from ..models.convert import split_stacked
+from ..obs.compute import compute_span
 from ..optim import adamw_update, error_feedback_update
 from ..optim.adamw import adamw_init
 from ..optim.grad_compression import init_residuals
@@ -95,7 +96,13 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
     accumulator memory).
     q8_moments: block-quantized int8 Adam moments (the state must come
     from init_state(moment_dtype="int8")); no ``eps_root``, as in the
-    reference."""
+    reference.
+
+    Each call is the root compute span ``train_step`` (attr ``tokens``)
+    over its phases ``forward_backward`` (the microbatches' losses and
+    gradients) and ``optimizer`` (the clip and the update), while a
+    profiler trace is being taken; the spans of the blocks stay silent
+    inside a step.  Gradient compression falls between the phases."""
     adt = getattr(torch, accum_dtype)
 
     def grads_of(params, batch):
@@ -121,43 +128,54 @@ def make_train_step(model: LanguageModel, *, lr, microbatches: int = 1,
                 for i in range(microbatches)]
 
     def train_step(state, batch):
+        tokens = batch["tokens"]
+        with compute_span("train_step", "tokens", tokens.numel(),
+                          device=tokens.device):
+            return step(state, batch)
+
+    def step(state, batch):
         params = state["params"]
-        if microbatches > 1:
-            device = next(iter(params.values())).device
-            gsum = {k: zeros_as(p, adt) for k, p in params.items()}
-            lsum = torch.zeros((), dtype=adt, device=device)
-            nsum = torch.zeros((), dtype=adt, device=device)
-            for mb in split_micro(batch):
-                loss, _, grads = grads_of(params, mb)
-                # weight each microbatch by its valid-token count: the model
-                # loss is a mean over valid (label >= 0) tokens, so an
-                # unweighted mean-of-means diverges from the full-batch
-                # gradient whenever microbatches carry unequal valid counts.
-                if "labels" in mb:
-                    n = torch.clamp((mb["labels"] >= 0).sum(), min=1).to(adt)
-                else:
-                    n = torch.ones((), dtype=adt, device=device)
-                for k, g in grads.items():
-                    gsum[k] += g.to(adt) * n
-                lsum = lsum + loss * n
-                nsum = nsum + n
-                del grads
-            grads = {k: g / nsum for k, g in gsum.items()}
-            loss = lsum / nsum
-            metrics = {"xent": loss, "aux": torch.zeros((), device=device)}
-        else:
-            loss, metrics, grads = grads_of(params, batch)
+        with compute_span("forward_backward", leaf=True):
+            if microbatches > 1:
+                device = next(iter(params.values())).device
+                gsum = {k: zeros_as(p, adt) for k, p in params.items()}
+                lsum = torch.zeros((), dtype=adt, device=device)
+                nsum = torch.zeros((), dtype=adt, device=device)
+                for mb in split_micro(batch):
+                    loss, _, grads = grads_of(params, mb)
+                    # weight each microbatch by its valid-token count: the
+                    # model loss is a mean over valid (label >= 0) tokens,
+                    # so an unweighted mean-of-means diverges from the
+                    # full-batch gradient whenever microbatches carry
+                    # unequal valid counts.
+                    if "labels" in mb:
+                        n = torch.clamp((mb["labels"] >= 0).sum(),
+                                        min=1).to(adt)
+                    else:
+                        n = torch.ones((), dtype=adt, device=device)
+                    for k, g in grads.items():
+                        gsum[k] += g.to(adt) * n
+                    lsum = lsum + loss * n
+                    nsum = nsum + n
+                    del grads
+                grads = {k: g / nsum for k, g in gsum.items()}
+                loss = lsum / nsum
+                metrics = {"xent": loss,
+                           "aux": torch.zeros((), device=device)}
+            else:
+                loss, metrics, grads = grads_of(params, batch)
 
         if compress_grads:
             grads, new_res = _compress(grads, state["residuals"])
-        if q8_moments:
-            _, new_opt, opt_metrics = q8nd_adamw_update(
-                params, grads, state["opt"], lr=lr,
-                weight_decay=weight_decay, max_grad_norm=max_grad_norm)
-        else:
-            _, new_opt, opt_metrics = adamw_update(
-                params, grads, state["opt"], lr=lr, eps_root=EPS_ROOT,
-                weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+        with compute_span("optimizer", leaf=True):
+            if q8_moments:
+                _, new_opt, opt_metrics = q8nd_adamw_update(
+                    params, grads, state["opt"], lr=lr,
+                    weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+            else:
+                _, new_opt, opt_metrics = adamw_update(
+                    params, grads, state["opt"], lr=lr, eps_root=EPS_ROOT,
+                    weight_decay=weight_decay, max_grad_norm=max_grad_norm)
         state["opt"] = new_opt
         if compress_grads:
             state["residuals"] = new_res

@@ -74,6 +74,71 @@ CHANGED = {
                           '"repro.serve.server"')],
     "serve/README.md": [("src/repro_torch/core/hwdata/",
                          "src/repro/core/hwdata/")],
+    # spans start on the profiler's clock, carry ids and, for compute
+    # spans (obs/compute.py), a device interval; the ring holds a traced
+    # window
+    "obs/trace.py": [
+        ('Spans are lightweight completed-interval records (start, duration,\n'
+         "small attribute dict, their own id and their parent's) kept in a bounded\n"
+         'process-global ring so tests and the demo can ask "which spans did trace\n'
+         'X produce?" without an external collector.  Recording honours the\n'
+         'metrics kill switch (``metrics.set_enabled(False)`` silences spans too).\n'
+         '\n'
+         "A span starts on ``time.time_ns()``, the clock of ``torch.profiler``'s\n"
+         'events, so it lays over a profiler trace as it stands; its duration is\n'
+         "taken on ``time.perf_counter_ns()``.  The ring also holds the model's\n"
+         'compute spans (:mod:`.compute`): a prefill or a training step and its\n'
+         'layers, recorded only while a ``torch.profiler`` trace is being taken,\n'
+         'on the same clock, each with the interval its work took on the device.\n',
+         'Spans are lightweight completed-interval records (monotonic start,\n'
+         'duration, small attribute dict) kept in a bounded process-global ring\n'
+         'so tests and the demo can ask "which spans did trace X produce?"\n'
+         'without an external collector.  Recording honours the metrics kill\n'
+         'switch (``metrics.set_enabled(False)`` silences spans too).\n'),
+        ('\n'
+         'import itertools\n',
+         '\n'),
+        ('    start_ns: int           # time.time_ns() at entry\n'
+         '    duration_s: float\n'
+         '    attrs: Dict\n'
+         '    span_id: int = 0\n'
+         '    parent_id: int = 0      # the span that opened this one; 0 for a root\n'
+         '    device: Optional[object] = None     # compute spans: its seconds there\n'
+         '\n'
+         '    @property\n'
+         '    def start_s(self) -> float:\n'
+         '        return self.start_ns / 1e9\n'
+         '\n'
+         '    @property\n'
+         '    def end_ns(self) -> int:\n'
+         '        return self.start_ns + round(self.duration_s * 1e9)\n'
+         '\n'
+         '    @property\n'
+         '    def device_s(self) -> Optional[float]:\n'
+         '        """Seconds on the device (compute spans only)."""\n'
+         '        return None if self.device is None else self.device.seconds\n',
+         '    start_s: float          # time.monotonic() at entry\n'
+         '    duration_s: float\n'
+         '    attrs: Dict\n'),
+        ('\n'
+         '#: a traced window holds ~100 requests of ~100 compute spans each\n'
+         '_SPANS_MAX = 1 << 16\n',
+         '\n'
+         '_SPANS_MAX = 4096\n'),
+        ('_IDS = itertools.count(1)\n',
+         ""),
+        ('        start_s = time.time_ns() / 1e9 - duration_s\n'
+         '    sp = Span(name, trace_id, round(start_s * 1e9), duration_s, attrs,\n'
+         '              next(_IDS))\n',
+         '        start_s = time.monotonic() - duration_s\n'
+         '    sp = Span(name, trace_id, start_s, duration_s, attrs)\n'),
+        ('    t0, c0 = time.time_ns(), time.perf_counter_ns()\n',
+         '    t0 = time.monotonic()\n'),
+        ('        record_span(name, trace_id, (time.perf_counter_ns() - c0) / 1e9,\n'
+         '                    start_s=t0 / 1e9, **attrs)\n',
+         '        record_span(name, trace_id, time.monotonic() - t0,\n'
+         '                    start_s=t0, **attrs)\n'),
+    ],
 }
 MODULE_PATH = re.compile(r"\brepro_torch\.(serve|obs|core|launch)\b")
 
