@@ -120,6 +120,11 @@ non-zero and prints no result):
                attention softcap (recurrentgemma-9b's 30), as the
                reference's does, so the plain path it is held to runs at
                softcap 0; the softcap's own effect is printed.
+               RAGGED_PREFILL repeats three requests off the 8 grid:
+               h2o-danube-1.8b at 3669 tokens (24 launches),
+               recurrentgemma-9b at 3669 (none: off the 128 grid its
+               softcap keeps the plain path, so both sides run it with the
+               softcap) and whisper-tiny at 1500 tokens and frames (8).
                llama-3.2-vision's bf16 gap is traced (VISION_TRACE: one
                attn block, one cross_attn block, depths 5 and 20, every
                xgate at 0 and at XGATE), printed, not gated.
@@ -293,6 +298,7 @@ from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.launch.validate import validate_device  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.attention import flash_takes_length  # noqa: E402
 from repro_torch.models.blocks import CrossAttnBlock  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     jax_layout, params_from_jax, params_to_jax, state_from_jax,
@@ -332,11 +338,12 @@ PREFILL_LEN = 8192          # danube: > window + 1 = 4097, the SWA mask bites
 # in both dtypes: 17.3 GB in bf16, 34.5 GB in fp32, beside two fp32 logit
 # tensors of 8.4 GB (8192 x 256,000) and the head's product.  whisper-tiny
 # is whole, 1536 tokens against 1536 frames: 30 s of audio (1500 frames)
-# rounded up to a multiple of 128, so that the flash path runs, with the
-# encoder and decoder lengths equal as the config maps them (enc_seq_ratio
-# 1).  llama-3.2-vision-90b: 20 of 100 layers (4 groups of four attn and a
-# cross_attn block, 39.6 GB in bf16; 100 would be 181 GB), the fp32 check
-# at 5 (one group, 26.1 GB); the memory is its 1601 image embeddings.
+# rounded up to a multiple of 128, so that its times compare with the
+# earlier runs', with the encoder and decoder lengths equal as the config
+# maps them (enc_seq_ratio 1).  llama-3.2-vision-90b: 20 of 100 layers (4
+# groups of four attn and a cross_attn block, 39.6 GB in bf16; 100 would be
+# 181 GB), the fp32 check at 5 (one group, 26.1 GB); the memory is its 1601
+# image embeddings.
 # minicpm-2b is whole (5.45 GB in bf16: the only MHA config, 36 heads of 64,
 # its head tied to the embedding).  deepseek-67b: 30 of 95 layers (1.384 GB
 # a layer, 3.36 GB of embedding and head: 44.9 GB); llama3-405b: 6 of 126
@@ -356,6 +363,12 @@ PREFILL = {DANUBE: (PREFILL_LEN, {}, {}),
            MINICPM: (PREFILL_LEN, {}, {"n_layers": 2}),
            DS67: (PREFILL_LEN, {"n_layers": 30}, {"n_layers": 2}),
            LLAMA3: (PREFILL_LEN, {"n_layers": 6}, {"n_layers": 2})}
+# Three models' requests again at a prompt length off the 8 grid, at
+# PREFILL's cuts: danube at a chat prompt's 3669 tokens (the kernel, a
+# ragged last tile), recurrentgemma-9b at the same (its softcap keeps the
+# plain path there: no launch), whisper-tiny at 30 s of audio's own 1500
+# frames (the non-causal encoder's ragged tile too).
+RAGGED_PREFILL = {DANUBE: 3669, RG: 3669, WHISPER: 1500}
 # Every cross-attention gate is set to this on each model a check compares
 # (both sides): the reference's init sets it to 0, and tanh(0) = 0 would
 # make a cross_attn block add nothing from the memory, so a check would pass
@@ -546,15 +559,15 @@ def read_launches() -> dict:
     return {name: mod.launches for name, mod in KERNELS.items()}
 
 
-def expected_launches(cfg, mlen) -> dict:
+def expected_launches(cfg, seq, mlen) -> dict:
     """Kernel launches of one ``make_prefill`` request with the kernels on,
-    over a prompt whose length is a multiple of 128 and a memory of
-    ``mlen`` (None without one): one flash-attention call per GQA
-    self-attention (the ``attn``, ``local_attn`` and ``cross_attn`` blocks,
-    ``moe`` without MLA, each dense prefix block, and each encoder block
-    when mlen % 128 == 0), none for MLA or cross-attention, one SSD call per
-    ssm block; the models never reach the matmul or rmsnorm kernels, as in
-    the reference."""
+    over a prompt of ``seq`` tokens and a memory of ``mlen`` (None without
+    one): one flash-attention call per GQA self-attention (the ``attn``,
+    ``local_attn`` and ``cross_attn`` blocks, ``moe`` without MLA, each
+    dense prefix block, and each encoder block over the memory) at the
+    lengths ``flash_takes_length`` lets through, none for MLA or
+    cross-attention, one SSD call per ssm block.  The models never reach
+    the matmul or rmsnorm kernels, as in the reference."""
     per_group = {"flash_attention": sum(
         k in ("attn", "local_attn", "cross_attn")
         or (k == "moe" and not cfg.use_mla) for k in cfg.pattern),
@@ -562,7 +575,9 @@ def expected_launches(cfg, mlen) -> dict:
         "matmul": 0, "rmsnorm": 0}
     want = {name: cfg.n_groups * n for name, n in per_group.items()}
     want["flash_attention"] += cfg.first_dense
-    if cfg.enc_layers and mlen % 128 == 0:
+    if not flash_takes_length(cfg, seq):
+        want["flash_attention"] = 0
+    if cfg.enc_layers and flash_takes_length(cfg, mlen):
         want["flash_attention"] += cfg.enc_layers
     return want
 
@@ -622,6 +637,15 @@ CHECKS = [  # name, b, hq, hkv, s, d, causal, window, strided
     ("S=72 D=128", 1, 8, 2, 72, 128, True, 0, False),   # under one query tile
     ("D=256 ragged S=1000", 1, 16, 1, 1000, 256, True, 2048, False),
     ("D=256 strided S=2048 w=256", 1, 16, 1, 2048, 256, True, 256, True),
+    # chat prompts off the 8 grid, as the chat traffic sends them: a ragged
+    # last key tile and a partial query tile
+    ("chat S=299 w=4096", 1, 32, 8, 299, 80, True, 4096, True),
+    ("chat S=3669 w=4096", 1, 32, 8, 3669, 80, True, 4096, True),
+    # non-causal off both grids, where only the key mask hides the tail:
+    # whisper-tiny's 1500 frames, and D=128
+    ("whisper encoder S=1500 non-causal", 1, 6, 6, 1500, 64, False, 0,
+     True),
+    ("non-causal S=999 D=128", 1, 8, 2, 999, 128, False, 0, True),
 ]
 # The main path's call: one layer of the 8192-token prefill request, bf16.
 MAIN = ("main path S=8192 w=4096", 1, 32, 8, PREFILL_LEN, 80, True, 4096,
@@ -1728,28 +1752,33 @@ def param_bytes(cfg) -> int:
                for p in build(cfg, "meta").parameters())
 
 
-def plain(cfg):
-    """The plain path a kernel path is held to: no kernel, and no attention
-    softcap, which the kernel path drops as the reference's does."""
-    return cfg.replace(use_flash_kernel=False, attn_logit_softcap=0.0)
+def plain(cfg, seq: int):
+    """The plain path a kernel path over ``seq`` positions is held to: no
+    kernel, and no attention softcap where the kernel path drops it (on the
+    128 grid), as the reference's does."""
+    cap = cfg.attn_logit_softcap if not flash_takes_length(cfg, seq) else 0.0
+    return cfg.replace(use_flash_kernel=False, attn_logit_softcap=cap)
 
 
-def prefill_requests(arch: str, entries: dict) -> None:
+def prefill_requests(arch: str, entries: dict, seq: int = 0) -> None:
     """The main path of ``arch``: fp32 kernel path against the plain path,
-    then the bf16 request counted and timed, at PREFILL's length and depth
-    cuts.  Records each kernel's launch count of the counted run in its
-    entry; for the MoE models, prints the routes that differ between the
-    fp32 paths and the dropped assignments of the bf16 request; for a model
-    with an attention softcap, the kernel path's distance from the plain
-    path with the softcap on (not gated)."""
-    seq, served_cut, check_cut = PREFILL[arch]
+    then the bf16 request counted and timed, at PREFILL's depth cuts and
+    length (``seq`` tokens instead, when given).  Records each kernel's
+    launch count of the counted run in its entry; for the MoE models,
+    prints the routes that differ between the fp32 paths and the dropped
+    assignments of the bf16 request; for a model with an attention softcap,
+    the kernel path's distance from the plain path with the softcap on (not
+    gated)."""
+    length, served_cut, check_cut = PREFILL[arch]
+    path = f"{arch} S={seq}" if seq else arch
+    seq = seq or length
     cfg = get_config(arch).replace(use_flash_kernel=True, **served_cut)
     tokens = torch.randint(0, cfg.vocab, (1, seq),
                            generator=generator(SEED + 1, "cuda"),
                            device="cuda")
     memory = memory_for(cfg, 1, seq)
     mlen = None if memory is None else memory.shape[1]
-    want = expected_launches(cfg, mlen)
+    want = expected_launches(cfg, seq, mlen)
     mem_fields = {} if memory is None else {"memory": mlen}
 
     # fp32: the kernel path against the plain path (attn_chunk=1024 ->
@@ -1764,9 +1793,9 @@ def prefill_requests(arch: str, entries: dict) -> None:
         logits_k = prefill(tokens, memory)
     torch.cuda.synchronize()
     launches32 = read_launches()
-    check_launches(f"{arch} fp32 prefill", launches32,
-                   expected_launches(cfg32, mlen))
-    model.cfg = plain(cfg32)
+    check_launches(f"{path} fp32 prefill", launches32,
+                   expected_launches(cfg32, seq, mlen))
+    model.cfg = plain(cfg32, seq)
     with recorded_routes(cfg32) as routes_p:
         logits_p = prefill(tokens, memory)
     what = f"{arch} fp32 prefill logits, kernel vs plain"
@@ -1815,10 +1844,10 @@ def prefill_requests(arch: str, entries: dict) -> None:
     reset_launches()
     first_ms = host_ms(request)
     launches = read_launches()
-    check_launches(f"{arch} bf16 prefill", launches, want)
-    record_launches(entries, arch, launches)
+    check_launches(f"{path} bf16 prefill", launches, want)
+    record_launches(entries, path, launches)
     kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
-    model.cfg = plain(cfg)
+    model.cfg = plain(cfg, seq)
     logits_p = None
 
     def plain_request():
@@ -1846,7 +1875,7 @@ def prefill_requests(arch: str, entries: dict) -> None:
           **moe_fields(cfg, seq), **drops)
     del model, prefill, logits_k, logits_p
     torch.cuda.empty_cache()
-    if arch == VISION:
+    if arch == VISION and path == arch:
         vision_bf16_trace(tokens, memory)
 
 
@@ -1876,7 +1905,7 @@ def vision_bf16_trace(tokens, memory) -> None:
                     g.fill_(gate)
             model.cfg = cfg
             logits_k = prefill(tokens, memory)
-            model.cfg = plain(cfg)
+            model.cfg = plain(cfg, tokens.shape[1])
             logits_p = prefill(tokens, memory)
             err = max_abs_err("vision trace", logits_k, logits_p)
             gaps[gate] = f"{err:.3e}"
@@ -2783,7 +2812,7 @@ def sharded_moe(mesh, rank: int) -> dict:
         ms = [host_ms(lambda: model.forward(tokens))]
         launches = read_launches()
         check_launches("sharded qwen3-moe bf16 forward", launches,
-                       expected_launches(cfg, None))
+                       expected_launches(cfg, PREFILL_LEN, None))
         ms = sorted(ms + [host_ms(lambda: model.forward(tokens))
                           for _ in range(SHARDED_TIMED_RUNS - 1)])
     all_drops = [torch.empty(len(drops), dtype=torch.long, device="cuda")
@@ -3158,6 +3187,8 @@ def main() -> int:
         generation_request(arch)
         phase("serve", arch=arch,
               seconds=f"{time.perf_counter() - t_arch:.1f}")
+    for arch, seq in RAGGED_PREFILL.items():
+        prefill_requests(arch, entries, seq)
     torch.cuda.empty_cache()
     reset_launches()
     train_checks()

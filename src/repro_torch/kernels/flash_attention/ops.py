@@ -1,12 +1,13 @@
-"""Public flash-attention op: the Hopper kernel on CUDA tensors, its plain
-version on CPU tensors, and the plain version for sequence lengths the
-reference does not send to its kernel.  Counterpart of
-``repro/kernels/flash_attention/ops.py``."""
+"""Public flash-attention op: the Hopper kernel on CUDA tensors at every
+sequence length, its plain version on CPU tensors.  Counterpart of
+``repro/kernels/flash_attention/ops.py``, whose Pallas kernel needs
+S % 8 == 0 and sends other lengths to the plain version; the CUDA kernel
+masks its ragged last tile instead."""
 from __future__ import annotations
 
 from typing import Optional
 
-from . import kernel, ref
+from . import kernel
 
 
 def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
@@ -19,8 +20,5 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.shape[2] % 8 != 0:
-        return ref.attention(q, k, v, sm_scale=sm_scale, causal=causal,
-                             window=window)
     return kernel.mha(q, k, v, sm_scale=sm_scale, causal=causal,
                       window=window)

@@ -95,12 +95,23 @@ def _sdpa_chunked(q, k, v, *, scale: float, causal: bool, window: int,
     return torch.cat(outs, dim=1)
 
 
+def flash_takes_length(cfg: ModelConfig, s: int) -> bool:
+    """Whether the flash kernel computes ``cfg``'s self-attention over ``s``
+    positions.  The kernel masks keys past S and stores only rows below it,
+    so it takes any length.  It has no softcap: a softcapped model keeps the
+    plain path off the reference's 128 grid, and on the grid drops the
+    softcap, as the reference does."""
+    return s % 128 == 0 or cfg.attn_logit_softcap == 0
+
+
 def attn_apply(p: Attention, x, cfg: ModelConfig, *, causal: bool = True,
                window: int = 0, kv_override: Optional[torch.Tensor] = None):
     """Prefill attention, with the reference's dispatch order: flash kernel,
     else chunked, else plain.  ``kv_override`` (B, M, d): a memory that K and
     V are projected from (cross-attention); then no rotary embedding is
-    applied and the kernel is not used, as in the reference."""
+    applied and the kernel is not used, as in the reference.  Unlike the
+    reference, whose kernel takes only S % 128 == 0, the kernel takes every
+    length of a model without an attention softcap."""
     dt = dtype_of(cfg)
     b, s, _ = x.shape
     hd = cfg.head_dim
@@ -126,11 +137,11 @@ def attn_apply(p: Attention, x, cfg: ModelConfig, *, causal: bool = True,
     scale = hd ** -0.5
 
     def core(q, k, v):
-        if cfg.use_flash_kernel and kv_override is None and s % 128 == 0:
+        if cfg.use_flash_kernel and kv_override is None and \
+                flash_takes_length(cfg, s):
             from ..kernels.flash_attention import flash_attention
             # (B,S,H,D) -> (B,H,S,D) views; the kernel reads them through
-            # their strides.  Softcap is dropped on this path, as in the
-            # reference.
+            # their strides.
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), sm_scale=scale,
                                 causal=causal, window=window)

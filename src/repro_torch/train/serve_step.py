@@ -18,9 +18,10 @@ def make_prefill(model: LanguageModel) -> Callable:
     """prefill(tokens[, memory_embeds]) -> last-token logits (B, V).
 
     Runs the full ``forward``, which is where the kernels run when
-    ``use_flash_kernel`` is set: flash attention (S % 128 == 0) in the
-    self-attention of the attention and cross-attention blocks and in the
-    encoder (M % 128 == 0), the SSD scan in the ssm blocks.  The sequential
+    ``use_flash_kernel`` is set: flash attention in the self-attention of
+    the attention and cross-attention blocks and in the encoder, at any
+    length (at S % 128 == 0 only, for a model with an attention softcap),
+    the SSD scan in the ssm blocks.  The sequential
     ``model.prefill`` of ``greedy_generate`` fills a cache instead.
 
     Each call is the root compute span ``prefill`` (attr ``tokens``, B·S)

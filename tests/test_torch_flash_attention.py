@@ -76,8 +76,8 @@ def test_plain_version_keeps_bf16_out_dtype():
 
 @pytest.mark.parametrize("s", [128, 100])
 def test_cpu_tensors_take_plain_path_without_launching(s):
-    """S % 8 == 0 reaches the wrapper, which takes the plain version on CPU
-    tensors; S = 100 is sent to the plain version by the op itself."""
+    """S = 128 and the ragged S = 100 both reach the wrapper, which takes
+    the plain version on CPU tensors."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 4, 2, s, 80))
     kernel.launches = 0
     got = flash_attention(q, k, v, causal=True, window=8)

@@ -61,6 +61,23 @@ FLASH_TOL = [(torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
     (256, 256, 4, 4, False, 0),         # D=256, non-causal
     (1536, 64, 6, 6, False, 0),         # whisper-tiny's encoder
     (2048, 128, 64, 8, True, 0),        # llama-3.2-vision: GQA group 8
+    # danube's shape at lengths off the 128 grid and mostly off the 8 one:
+    # one row, a tail in the first Q tile, either side of a Q tile, and
+    # chat prompts, each a ragged last key tile the kernel masks
+    (1, 80, 32, 8, True, 4096),
+    (7, 80, 32, 8, True, 4096),
+    (9, 80, 32, 8, True, 4096),
+    (127, 80, 32, 8, True, 4096),
+    (129, 80, 32, 8, True, 4096),
+    (299, 80, 32, 8, True, 4096),
+    (1007, 80, 32, 8, True, 4096),
+    (1181, 80, 32, 8, True, 4096),
+    (3181, 80, 32, 8, True, 4096),
+    (3669, 80, 32, 8, True, 4096),
+    # non-causal off both grids, where only the key mask hides the tail:
+    # whisper-tiny's 1500 frames, and D=128
+    (1500, 64, 6, 6, False, 0),
+    (999, 128, 8, 2, False, 0),
 ])
 def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
                                       hkv, causal, window):
@@ -231,6 +248,58 @@ def test_memory_and_hybrid_smoke_forward_on_card_matches_cpu(
     assert kernel.launches == launches
     want = serve_step.make_prefill(on_cpu)(tokens, mem)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [299, 1007])
+def test_ragged_prefill_kernel_path_matches_plain_on_card(cuda_device, s):
+    """danube-smoke through make_prefill at prompt lengths that are
+    multiples of neither 128 nor 8: every layer's attention launches the
+    kernel once, and the logits match the plain path's on the card.  In
+    fp32, at the tolerance of the other make_prefill checks here; the bf16
+    paths are held by the next test."""
+    cfg = get_config("h2o-danube-1.8b", smoke=True).replace(
+        use_flash_kernel=True)
+    model = build(cfg, cuda_device).init(generator(0, cuda_device))
+    tokens = torch.randint(0, cfg.vocab, (2, s),
+                           generator=generator(1, "cpu")).to(cuda_device)
+    kernel.launches = 0
+    got = serve_step.make_prefill(model)(tokens)
+    torch.cuda.synchronize()
+    assert kernel.launches == cfg.n_layers
+    model.cfg = cfg.replace(use_flash_kernel=False)
+    want = serve_step.make_prefill(model)(tokens)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [256, 299, 1007])
+def test_ragged_prefill_bf16_kernel_path_as_close_as_plain_on_card(
+        cuda_device, s):
+    """danube-smoke in bf16, the served dtype, through make_prefill: the
+    kernel path (one launch a layer) and the plain path, each held against
+    the fp32 plain path's logits.  The two bf16 paths part by the residual
+    stream's rounding, so neither is the other's yardstick; the kernel path
+    passes if its gap is at most 1.5 times the plain path's, plus 1e-3.  On
+    an H100 the gaps read 0.0056 / 0.0098 / 0.0045 (kernel) and 0.0056 /
+    0.0108 / 0.0041 (plain) at S 256 / 299 / 1007."""
+    base = get_config("h2o-danube-1.8b", smoke=True)
+    m32 = build(base, cuda_device).init(generator(0, cuda_device))
+    m16 = build(base.replace(dtype="bfloat16", param_dtype="bfloat16"),
+                cuda_device)
+    m16.load_state_dict({k: v.bfloat16()
+                         for k, v in m32.state_dict().items()})
+    tokens = torch.randint(0, base.vocab, (2, s),
+                           generator=generator(1, "cpu")).to(cuda_device)
+    want = serve_step.make_prefill(m32)(tokens)
+    m16.cfg = m16.cfg.replace(use_flash_kernel=True)
+    kernel.launches = 0
+    got = serve_step.make_prefill(m16)(tokens).float()
+    torch.cuda.synchronize()
+    assert kernel.launches == base.n_layers
+    m16.cfg = m16.cfg.replace(use_flash_kernel=False)
+    plain16 = serve_step.make_prefill(m16)(tokens).float()
+    kernel_gap = (got - want).abs().max().item()
+    plain_gap = (plain16 - want).abs().max().item()
+    assert kernel_gap <= 1.5 * plain_gap + 1e-3, (kernel_gap, plain_gap)
 
 
 # The SSD kernel against the plain chunked version at the same chunk: the

@@ -71,7 +71,7 @@ def test_smoke_config_keeps_full_head_dim():
     (True, 0, 256),
     (False, 64, 128),      # _sdpa_chunked
     (False, 0, 96),        # _sdpa
-    (True, 0, 96),         # s % 128 != 0: flash falls through to _sdpa
+    (True, 0, 96),         # s % 128 != 0: the op's plain version on the CPU
 ], ids=["flash_s128", "flash_s256", "chunked_s128", "sdpa_s96",
         "flash_off_grid_s96"])
 def test_forward_matches_reference(ref_params, flash, chunk, s):
@@ -84,6 +84,48 @@ def test_forward_matches_reference(ref_params, flash, chunk, s):
     assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
+
+
+@pytest.mark.parametrize("s,softcap,override,reaches", [
+    (96, 0.0, False, True),
+    (299, 0.0, False, True),
+    (128, 0.0, False, True),
+    (299, 30.0, False, False),     # the kernel has no softcap
+    (256, 30.0, False, True),      # on the grid it drops it, as before
+    (299, 0.0, True, False),       # cross-attention never reaches it
+], ids=["s96", "s299", "s128", "softcap_s299", "softcap_s256",
+        "kv_override_s299"])
+def test_attn_apply_sends_lengths_to_the_kernel(monkeypatch, s, softcap,
+                                                override, reaches):
+    """With use_flash_kernel, self-attention goes to the flash op at every
+    length, but a softcapped model's only at S % 128 == 0; what it returns
+    equals the plain path at the softcap the path applies."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    calls = []
+    real = fa.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append(q.shape[2])
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(fa, "flash_attention", counted)
+    cfg = get_config(ARCH, smoke=True).replace(use_flash_kernel=True,
+                                               attn_logit_softcap=softcap)
+    m = attention.Attention(cfg, "cpu")
+    m.init(port_device.generator(0, "cpu"), cfg)
+    m.wq.data.mul_(10.0)               # scores that reach the cap
+    x = torch.randn((1, s, cfg.d_model),
+                    generator=port_device.generator(1, "cpu"))
+    kv = x[:, :40] if override else None
+    with torch.inference_mode():
+        got = attention.attn_apply(m, x, cfg, window=cfg.window,
+                                   kv_override=kv)
+        assert calls == ([s] if reaches else [])
+        plain = cfg.replace(use_flash_kernel=False,
+                            attn_logit_softcap=0.0 if reaches else softcap)
+        want = attention.attn_apply(m, x, plain, window=cfg.window,
+                                    kv_override=kv)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
 def test_prefill_and_greedy_generate_match_reference(ref_params):
