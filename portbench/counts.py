@@ -9,6 +9,10 @@ No share is priced at the rate of one implementation's arithmetic.
 
 A model is described by the dict under ``"model"`` in its configuration
 file (``portbench/configs/<config>.json``), with the port's field names.
+The whole-model counts here (``prefill_flops``, ``train_flops``,
+``attention_layers``) are the defaults: a configuration's own reference
+module (``references/<config>.py``) may give its own, and the readers that
+price a whole model take the cell's from the trace (``t.counts``).
 """
 from __future__ import annotations
 
@@ -65,9 +69,18 @@ def bound_s(flops: float, nbytes: float) -> float:
 
 
 def block_kinds(m: dict) -> list:
-    """The kind of every layer, in order."""
+    """The kind of every layer, in order: the dense ``prefix`` blocks
+    (``attn``), then the groups of ``pattern``."""
     pattern = list(m.get("pattern", ["attn"]))
-    return pattern * (m["n_layers"] // len(pattern))
+    first = m.get("first_dense", 0)
+    return ["attn"] * first + pattern * ((m["n_layers"] - first)
+                                         // len(pattern))
+
+
+def attention_layers(m: dict) -> int:
+    """Attention-layer calls of one request: the layers whose
+    self-attention may take the flash kernel."""
+    return sum(k in ("attn", "local_attn") for k in block_kinds(m))
 
 
 def layer_matmul_params(m: dict, kind: str) -> int:

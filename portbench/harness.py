@@ -6,11 +6,19 @@ needs is found by name: its configuration file (``configs[].file``), its
 traffic mix (``portbench/traffic/<traffic>.json``), its limits
 (``portbench/limits/<workload>.json``) and each per-layer metric's reader
 (``portbench/metrics/<metric>.py``, a ``read(trace)`` that returns a number
-or None).  The program under test is ``repro_torch``; this module imports
-it inside the functions that run it, never at import.
+or None) and, where there is one, the configuration's own module of
+equations and work counts (``portbench/references/<config>.py``;
+``yardstick``).  An end-to-end metric named ``<quantity>.<tag>`` reports
+the run's ``<quantity>`` under a bound of its own, for the cells it lists;
+a per-layer metric so named, with no reader of its own, is read by
+``<quantity>``'s reader (``reader_path``).
+The program under test is ``repro_torch``; this module imports it inside
+the functions that run it, never at import.
 """
 from __future__ import annotations
 
+import ast
+import functools
 import gc
 import importlib.util
 import json
@@ -21,13 +29,13 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from . import reference, tracing
+from . import counts, reference, tracing
 from .traffic import PrefillTraffic, TrainBatches, check_sample, seed_words
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,7 +75,8 @@ def load_cell(workload: str, root: Path = ROOT,
     return SimpleNamespace(name=workload, chips=cell["chips"],
                            model=model, mix=mix, limits=limits,
                            end_to_end=e2e, per_layer=per_layer,
-                           metrics_dir=here / "metrics")
+                           metrics_dir=here / "metrics",
+                           own=here / "references" / f"{cell['config']}.py")
 
 
 def model_config(cell):
@@ -77,13 +86,76 @@ def model_config(cell):
     return ModelConfig(**fields)
 
 
-def reader(cell, name: str):
-    path = cell.metrics_dir / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+def _load(path: Path, prefix: str):
+    name = prefix + path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader_path(metrics_dir: Path, name: str) -> Path:
+    """A per-layer metric's reader: ``metrics/<name>.py``, or, for a name
+    ``<quantity>.<tag>`` with no file of its own, ``<quantity>``'s (the same
+    reading, moving the end-to-end metric of the cells the entry lists)."""
+    path = metrics_dir / f"{name}.py"
+    quantity, dot, _ = name.rpartition(".")
+    return path if path.is_file() or not dot else \
+        metrics_dir / f"{quantity}.py"
+
+
+def reader(cell, name: str):
+    return _load(reader_path(cell.metrics_dir, name),
+                 "portbench_metric_").read
+
+
+def own_module(path: Path):
+    """A configuration's module, loaded by path.  It is part of the
+    yardstick, so it may import nothing of the program (nor jax or the
+    reference package): neither in its source nor among its names once
+    loaded."""
+    tree = ast.parse(path.read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0}
+    mod = _load(path, "portbench_reference_")
+    names |= {getattr(v, "__module__", None) or getattr(v, "__name__", "")
+              for v in vars(mod).values()
+              if isinstance(v, ModuleType) or callable(v)}
+    bad = sorted(n for n in names if n and n.split(".")[0] in
+                 FORBIDDEN + ("repro_torch",))
+    if bad:
+        raise ValueError(f"{path.name} imports {bad}: a reference module "
+                         f"takes nothing of the program")
+    return mod
+
+
+def yardstick(cell) -> SimpleNamespace:
+    """The cell's reference equations, weights and work counts:
+    ``reference.py``'s and ``counts.py``'s, with whatever the
+    configuration's own module (``references/<config>.py``, where there is
+    one) gives over them: ``KINDS`` (its block kinds' leaves, added to the
+    default ``param_spec``), a ``Reference`` class, ``prefill_flops(m, s)``,
+    ``train_flops(m, b, s)``, ``attention_layers(m)``."""
+    own = own_module(cell.own) if cell.own.is_file() else None
+
+    def get(name, default):
+        return getattr(own, name, default)
+    spec = functools.partial(reference.param_spec, kinds=get("KINDS", None))
+    ref_class = get("Reference", reference.Reference)
+    return SimpleNamespace(
+        own=own, param_spec=spec,
+        make_weights=lambda m, seed, dev: reference.make_weights(
+            m, seed, dev, spec(m)),
+        Reference=ref_class,
+        follow_training=functools.partial(reference.follow_training,
+                                          reference=ref_class),
+        counts=SimpleNamespace(
+            prefill_flops=get("prefill_flops", counts.prefill_flops),
+            train_flops=get("train_flops", counts.train_flops),
+            attention_layers=get("attention_layers",
+                                 counts.attention_layers)))
 
 
 def forbidden_modules() -> List[str]:
@@ -277,11 +349,12 @@ def train_readings(prog: dict, ref: dict) -> Dict[str, float]:
 
 # ------------------------------------------------------------ prefill cells
 
-def run_prefill(cell, cfg, seed, seconds, tracer, card, t_start, control):
+def run_prefill(cell, ys, cfg, seed, seconds, tracer, card, t_start,
+                control):
     from repro_torch.models import build
     from repro_torch.train import serve_step
     model = build(cfg, card.dev)
-    load_weights(model, reference.make_weights(cell.model, seed, card.dev))
+    load_weights(model, ys.make_weights(cell.model, seed, card.dev))
     prefill = serve_step.make_prefill(model)
     traffic = PrefillTraffic(cell.mix, cfg.vocab, seed)
 
@@ -337,7 +410,8 @@ def run_prefill(cell, cfg, seed, seconds, tracer, card, t_start, control):
         "attempted": len(served), "failed": 0,
     }
     if tracer.on:
-        out["traced"] = {"prompts": traced}
+        out["traced"] = {"prompts": traced,
+                         "ttft_ms": [1e3 * t for t in ttfts]}
     sample = check_sample(lengths, int(cell.mix["check_requests"]), seed)
     got = [served[i][3] for i in sample]
     tokens = [served[i][2] for i in sample]
@@ -346,15 +420,15 @@ def run_prefill(cell, cfg, seed, seconds, tracer, card, t_start, control):
 
     # the reference, once the program's state is freed
     t_ref = time.perf_counter()
-    w = reference.make_weights(cell.model, seed, card.dev)
-    ref = reference.Reference(cell.model, w)
+    w = ys.make_weights(cell.model, seed, card.dev)
+    ref = ys.Reference(cell.model, w)
     want = [ref.last_logits(torch.from_numpy(traffic.ids(i)).to(card.dev))
             for i in sample]
     out["readings"] = prefill_readings(got, tokens, want)
     card.sync()
     out["ref_s"] = time.perf_counter() - t_ref
     if control:
-        ctl = reference.Reference(cell.model, w, fp8=True)
+        ctl = ys.Reference(cell.model, w, fp8=True)
         ctl_logits = [ctl.last_logits(torch.from_numpy(traffic.ids(i))
                                       .to(card.dev)) for i in sample]
         out["control"] = prefill_readings(
@@ -377,12 +451,13 @@ def leaf_norms(tensors: Dict[str, torch.Tensor], scale: float = 1.0,
             for k, t in tensors.items()}
 
 
-def run_train(cell, cfg, seed, seconds, tracer, card, t_start, control):
+def run_train(cell, ys, cfg, seed, seconds, tracer, card, t_start,
+              control):
     from repro_torch.models import build
     from repro_torch.train import train_step as ts
     mix = cell.mix
     model = build(cfg, card.dev)
-    load_weights(model, reference.make_weights(cell.model, seed, card.dev))
+    load_weights(model, ys.make_weights(cell.model, seed, card.dev))
     state = ts.init_state(model)
     step = ts.make_train_step(model, lr=mix["lr"],
                               weight_decay=mix["weight_decay"],
@@ -403,7 +478,7 @@ def run_train(cell, cfg, seed, seconds, tracer, card, t_start, control):
         prog["losses"].append(run_step(k))
         if k == 0:
             prog["first_grad"] = leaf_norms(state["opt"]["mu"], 1 / (1 - b1))
-    p0 = reference.make_weights(cell.model, seed, card.dev)
+    p0 = ys.make_weights(cell.model, seed, card.dev)
     prog["change"] = leaf_norms(state["params"], minus=p0)
     del p0          # its blocks stay cached: the window mallocs nothing
     card.sync()
@@ -449,14 +524,14 @@ def run_train(cell, cfg, seed, seconds, tracer, card, t_start, control):
     kw = dict(lr=mix["lr"], weight_decay=mix["weight_decay"],
               max_grad_norm=mix["max_grad_norm"])
     t_ref = time.perf_counter()
-    w = reference.make_weights(cell.model, seed, card.dev)
-    ref = reference.follow_training(cell.model, w, follow, **kw)
+    w = ys.make_weights(cell.model, seed, card.dev)
+    ref = ys.follow_training(cell.model, w, follow, **kw)
     out["readings"] = train_readings(prog, ref)
     out["ref_s"] = time.perf_counter() - t_ref
     out["raw"] = {"program": prog, "reference": ref}
     if control:
         card.free()
-        ctl = reference.follow_training(cell.model, w, follow, fp8=True, **kw)
+        ctl = ys.follow_training(cell.model, w, follow, fp8=True, **kw)
         out["control"] = train_readings(ctl, ref)
         out["raw"]["control"] = ctl
     out["checked"] = len(follow)
@@ -476,21 +551,24 @@ def run_cell(workload: str, *, seed: int, seconds: float, trace: bool,
     raw readings (``run.py`` drops them)."""
     t_start = time.perf_counter() if t_start is None else t_start
     cell = load_cell(workload, root, overrides)
+    ys = yardstick(cell)
     card = Card(device)
     tracer = Tracer(trace, card)
-    run = RUNS[cell.mix["kind"]](cell, model_config(cell), seed, seconds,
-                                 tracer, card, t_start, control)
+    run = RUNS[cell.mix["kind"]](cell, ys, model_config(cell), seed,
+                                 seconds, tracer, card, t_start, control)
     e2e = dict(run["e2e"], setup_s=run["setup_s"])
     device = dict(card.info(), memory_peak_bytes=run["memory"])
     if trace:
         reduced = tracer.reduce()
         traced = SimpleNamespace(
-            model=cell.model, mix=cell.mix, launches=tracer.launches,
+            model=cell.model, mix=cell.mix, counts=ys.counts,
+            launches=tracer.launches,
             window_s=reduced["window_s"], busy_s=reduced["busy_s"],
             kernels=reduced["kernels"],
             kernel_seconds=lambda part: sum(
                 v for k, v in reduced["kernels"].items() if part in k),
             prompts=run["traced"].get("prompts", []),
+            ttft_ms=run["traced"].get("ttft_ms", []),
             steps=run["traced"].get("steps", 0),
             batch=run["traced"].get("batch", 0),
             seq=run["traced"].get("seq", 0))
@@ -501,7 +579,8 @@ def run_cell(workload: str, *, seed: int, seconds: float, trace: bool,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         device.update(busy_s=reduced["busy_s"], window_s=reduced["window_s"])
     else:
-        metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
+        metrics = {m["name"]: {"value": e2e[m["name"].partition(".")[0]],
+                               "unit": m["unit"]}
                    for m in cell.end_to_end}
     checks = compare(run["readings"], cell.limits)
     result = {"correct": passed(checks) and run["failed"] == 0,

@@ -16,11 +16,20 @@ program in bf16 would be tempted to step down to.
 Weights are named as the port names its parameters (``named_parameters``
 of ``repro_torch.models.build``); ``make_weights`` fills them from the seed
 on the card in one large draw, in the dtype they are served in.
+
+A configuration whose block kinds these equations do not know brings its
+own module, ``references/<config>.py`` (see ``harness.yardstick``).  It
+reuses what is here: its ``KINDS`` (a kind's leaves, after the common
+``ln1``) go to ``param_spec``; ``layout``, the leaves ``dense``, ``norm``,
+``gqa_leaves`` and ``mlp_leaves``, and ``Reference`` subclassed with a
+``block`` for its kinds (``gqa``, ``swiglu``, ``norm`` at hand), whose
+weight products go through ``mm`` / ``prod`` so that the fp8 control covers
+them too.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,59 +43,96 @@ NEG_INF = float("-inf")
 
 # ------------------------------------------------------------------ weights
 
-def _kinds(m: dict) -> List[Tuple[str, str]]:
-    """(name prefix, block kind) of every layer."""
+def layout(m: dict) -> List[Tuple[str, str]]:
+    """(name prefix, block kind) of every layer, in the order the model runs
+    them: the port's dense ``prefix`` blocks (``first_dense`` of them, kind
+    ``attn``), then the groups of ``pattern``."""
     pattern = list(m.get("pattern", ["attn"]))
-    groups = m["n_layers"] // len(pattern)
-    return [(f"groups.{g}.b{i}.", kind) for g in range(groups)
-            for i, kind in enumerate(pattern)]
+    first = m.get("first_dense", 0)
+    groups = (m["n_layers"] - first) // len(pattern)
+    return [(f"prefix.{i}.", "attn") for i in range(first)] + [
+        (f"groups.{g}.b{i}.", kind) for g in range(groups)
+        for i, kind in enumerate(pattern)]
 
 
-def param_spec(m: dict) -> List[Tuple[str, tuple, tuple, str]]:
-    """(name, shape, init, dtype) of every parameter.  Inits: ("normal",
-    std), ("ones",), ("zeros",), ("a_log",): the port's distributions."""
-    d, v = m["d_model"], m["vocab"]
-    pd = m["param_dtype"]
-    rs = m.get("residual_scale", 1.0)
-    spec = [("tok_embed", (v, d), ("normal", 0.02), pd),
-            ("final_norm", (d,), ("ones",), pd)]
+def dense(m: dict, name: str, d_in: int, d_out: int, scale: float = 1.0):
+    """A (d_in, d_out) weight product's leaf: N(0, (scale / sqrt(d_in))^2)
+    in the parameter dtype."""
+    return (name, (d_in, d_out), ("normal", scale * d_in ** -0.5),
+            m["param_dtype"])
 
-    def dense(name, d_in, d_out, scale=1.0):
-        spec.append((name, (d_in, d_out), ("normal", scale * d_in ** -0.5),
-                     pd))
 
-    for pre, kind in _kinds(m):
-        spec.append((pre + "ln1", (d,), ("ones",), pd))
-        if kind in ("attn", "local_attn"):
-            hd = m.get("head_dim") or d // m["n_heads"]
-            hq, hkv = m["n_heads"] * hd, m["n_kv_heads"] * hd
-            dense(pre + "attn.wq", d, hq)
-            dense(pre + "attn.wk", d, hkv)
-            dense(pre + "attn.wv", d, hkv)
-            dense(pre + "attn.wo", hq, d, rs)
-            if m.get("d_ff", 0):
-                ff = m["d_ff"]
-                spec.append((pre + "ln2", (d,), ("ones",), pd))
-                dense(pre + "mlp.wg", d, ff)
-                dense(pre + "mlp.wu", d, ff)
-                dense(pre + "mlp.wd", ff, d, rs)
-        elif kind == "ssm":
-            di, n, h = _ssm_dims(m)
+def norm(m: dict, name: str, width: int):
+    """A norm's scale, at 1."""
+    return (name, (width,), ("ones",), m["param_dtype"])
+
+
+def gqa_leaves(pre: str, m: dict) -> list:
+    """GQA's ``wq``, ``wk``, ``wv``, ``wo``."""
+    d = m["d_model"]
+    hd = m.get("head_dim") or d // m["n_heads"]
+    hq, hkv = m["n_heads"] * hd, m["n_kv_heads"] * hd
+    return [dense(m, pre + "wq", d, hq), dense(m, pre + "wk", d, hkv),
+            dense(m, pre + "wv", d, hkv),
+            dense(m, pre + "wo", hq, d, m.get("residual_scale", 1.0))]
+
+
+def attn_leaves(pre: str, m: dict) -> list:
+    """GQA (``attn.*``) and, when ``d_ff`` > 0, the SwiGLU MLP (``ln2``,
+    ``mlp.*``)."""
+    spec = gqa_leaves(pre + "attn.", m)
+    if m.get("d_ff", 0):
+        spec += [norm(m, pre + "ln2", m["d_model"])] + mlp_leaves(
+            pre + "mlp.", m, m["d_ff"])
+    return spec
+
+
+def mlp_leaves(pre: str, m: dict, width: int) -> list:
+    """A SwiGLU MLP of ``width``: ``wg``, ``wu``, ``wd``."""
+    d = m["d_model"]
+    return [dense(m, pre + "wg", d, width), dense(m, pre + "wu", d, width),
+            dense(m, pre + "wd", width, d, m.get("residual_scale", 1.0))]
+
+
+def ssm_leaves(pre: str, m: dict) -> list:
+    """The Mamba2 mixer's leaves, ``ssm.*``."""
+    d, pd = m["d_model"], m["param_dtype"]
+    di, n, h = _ssm_dims(m)
+    spec = [dense(m, pre + "ssm." + leaf, d, width)
             for leaf, width in (("w_z", di), ("w_xs", di), ("w_b", n),
-                                ("w_c", n), ("w_dtp", h)):
-                dense(pre + "ssm." + leaf, d, width)
-            spec += [(pre + "ssm.conv_w", (m["conv_width"], di + 2 * n),
-                      ("normal", 0.1), pd),
-                     (pre + "ssm.conv_b", (di + 2 * n,), ("zeros",), pd),
-                     (pre + "ssm.a_log", (h,), ("a_log",), "float32"),
-                     (pre + "ssm.dt_bias", (h,), ("zeros",), "float32"),
-                     (pre + "ssm.d_skip", (h,), ("ones",), "float32"),
-                     (pre + "ssm.norm_scale", (di,), ("ones",), pd)]
-            dense(pre + "ssm.w_out", di, d, rs)
-        else:
+                                ("w_c", n), ("w_dtp", h))]
+    spec += [(pre + "ssm.conv_w", (m["conv_width"], di + 2 * n),
+              ("normal", 0.1), pd),
+             (pre + "ssm.conv_b", (di + 2 * n,), ("zeros",), pd),
+             (pre + "ssm.a_log", (h,), ("a_log",), "float32"),
+             (pre + "ssm.dt_bias", (h,), ("zeros",), "float32"),
+             (pre + "ssm.d_skip", (h,), ("ones",), "float32"),
+             norm(m, pre + "ssm.norm_scale", di)]
+    spec.append(dense(m, pre + "ssm.w_out", di, d,
+                      m.get("residual_scale", 1.0)))
+    return spec
+
+
+KINDS = {"attn": attn_leaves, "local_attn": attn_leaves, "ssm": ssm_leaves}
+
+
+def param_spec(m: dict, kinds: Optional[dict] = None
+               ) -> List[Tuple[str, tuple, tuple, str]]:
+    """(name, shape, init, dtype) of every parameter, in draw order.  Inits:
+    ("normal", std), ("ones",), ("zeros",), ("a_log",): the port's
+    distributions.  ``kinds`` (kind -> ``leaves(pre, m)``) adds a module's
+    block kinds to ``KINDS``; every layer's ``ln1`` comes first."""
+    d, v = m["d_model"], m["vocab"]
+    kinds = dict(KINDS, **(kinds or {}))
+    spec = [("tok_embed", (v, d), ("normal", 0.02), m["param_dtype"]),
+            norm(m, "final_norm", d)]
+    for pre, kind in layout(m):
+        if kind not in kinds:
             raise ValueError(f"the reference has no block kind {kind!r}")
+        spec.append(norm(m, pre + "ln1", d))
+        spec += kinds[kind](pre, m)
     if not m.get("tie_embeddings", False):
-        spec.append(("lm_head", (d, v), ("normal", 0.02), pd))
+        spec.append(("lm_head", (d, v), ("normal", 0.02), m["param_dtype"]))
     return spec
 
 
@@ -100,10 +146,13 @@ def weight_seed(seed: int) -> int:
 
 
 @torch.no_grad()
-def make_weights(m: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every parameter from ``seed``: the normal leaves are views of one
-    draw on ``device`` in the parameter dtype, scaled in place."""
-    spec = param_spec(m)
+def make_weights(m: dict, seed: int, device,
+                 spec: Optional[list] = None) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``spec`` (``param_spec(m)`` unless given) from
+    ``seed``: the normal leaves are views of one draw on ``device`` in the
+    parameter dtype, scaled in place (and cast, for a leaf of another
+    dtype)."""
+    spec = param_spec(m) if spec is None else spec
     gen = torch.Generator(device=device).manual_seed(weight_seed(seed))
     total = sum(math.prod(shape) for _, shape, init, _ in spec
                 if init[0] == "normal")
@@ -114,7 +163,8 @@ def make_weights(m: dict, seed: int, device) -> Dict[str, torch.Tensor]:
         dtype = getattr(torch, dt)
         if init[0] == "normal":
             n = math.prod(shape)
-            out[name] = flat[off:off + n].view(shape).mul_(init[1])
+            out[name] = flat[off:off + n].view(shape).mul_(init[1]).to(
+                dtype)
             off += n
         elif init[0] == "ones":
             out[name] = torch.ones(shape, dtype=dtype, device=device)
@@ -242,23 +292,34 @@ class Reference:
     def mm(self, x, name):
         return self.prod(x, self.p(name))
 
-    def attn_block(self, pre, x, window):
+    def norm(self, name, x):
+        return rmsnorm(x, self.p(name), self.eps)
+
+    def gqa(self, pre, h, window):
+        """GQA with rotary embeddings over the normed ``h`` (B, S, d), its
+        leaves under ``pre`` (``wq``, ``wk``, ``wv``, ``wo``): the output
+        before the residual add."""
         m = self.m
-        b, s, d = x.shape
+        b, s, d = h.shape
         hd = m.get("head_dim") or d // m["n_heads"]
-        h = rmsnorm(x, self.p(pre + "ln1"), self.eps)
-        q = self.mm(h, pre + "attn.wq").reshape(b, s, m["n_heads"], hd)
-        k = self.mm(h, pre + "attn.wk").reshape(b, s, m["n_kv_heads"], hd)
-        v = self.mm(h, pre + "attn.wv").reshape(b, s, m["n_kv_heads"], hd)
+        q = self.mm(h, pre + "wq").reshape(b, s, m["n_heads"], hd)
+        k = self.mm(h, pre + "wk").reshape(b, s, m["n_kv_heads"], hd)
+        v = self.mm(h, pre + "wv").reshape(b, s, m["n_kv_heads"], hd)
         theta = m.get("rope_theta", 10000.0)
         o = attention(rope(q, theta), rope(k, theta), v, window,
                       self.query_block)
-        x = x + self.mm(o.reshape(b, s, -1), pre + "attn.wo")
-        if m.get("d_ff", 0):
-            h = rmsnorm(x, self.p(pre + "ln2"), self.eps)
-            u = F.silu(self.mm(h, pre + "mlp.wg")) * self.mm(h, pre +
-                                                              "mlp.wu")
-            x = x + self.mm(u, pre + "mlp.wd")
+        return self.mm(o.reshape(b, s, -1), pre + "wo")
+
+    def swiglu(self, pre, h):
+        """The SwiGLU MLP over the normed ``h``, its leaves under ``pre``
+        (``wg``, ``wu``, ``wd``)."""
+        u = F.silu(self.mm(h, pre + "wg")) * self.mm(h, pre + "wu")
+        return self.mm(u, pre + "wd")
+
+    def attn_block(self, pre, x, window):
+        x = x + self.gqa(pre + "attn.", self.norm(pre + "ln1", x), window)
+        if self.m.get("d_ff", 0):
+            x = x + self.swiglu(pre + "mlp.", self.norm(pre + "ln2", x))
         return x
 
     def ssm_block(self, pre, x):
@@ -284,15 +345,18 @@ class Reference:
         return x + self.mm(y, pre + "ssm.w_out")
 
     def block(self, pre, kind, x):
+        """One layer; a module's subclass adds its kinds here."""
         if kind == "ssm":
             return self.ssm_block(pre, x)
+        if kind not in ("attn", "local_attn"):
+            raise ValueError(f"the reference has no block kind {kind!r}")
         window = self.m.get("window", 0) if kind == "local_attn" else 0
         return self.attn_block(pre, x, window)
 
     def hidden(self, ids, remat: bool = False):
         """ids (B, S) -> the final norm's output (B, S, d)."""
         x = self.p("tok_embed")[ids]
-        for pre, kind in _kinds(self.m):
+        for pre, kind in layout(self.m):
             if remat:
                 x = ckpt.checkpoint(self.block, pre, kind, x,
                                     use_reentrant=False)
@@ -322,15 +386,17 @@ def follow_training(m: dict, w: Dict[str, torch.Tensor],
                     batches: Iterable[Dict[str, torch.Tensor]], *, lr: float,
                     weight_decay: float, max_grad_norm: float,
                     b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                    eps_root: float = 1e-8, fp8: bool = False) -> dict:
+                    eps_root: float = 1e-8, fp8: bool = False,
+                    reference: type = None) -> dict:
     """AdamW steps in fp32 from the weights ``w`` over ``batches`` (each a
     dict of (B, S) ``tokens`` and ``labels`` on the card), a row at a time:
     the mean token cross entropy over the batch, its gradients clipped to
     a global norm of ``max_grad_norm``, then the update.  Returns each
     step's loss, each leaf's norm of the first clipped gradient and of its
-    change over all the steps."""
+    change over all the steps.  ``reference``: the equations' class
+    (``Reference`` unless given)."""
     params = {k: t.float().clone().requires_grad_(True) for k, t in w.items()}
-    ref = Reference(m, params, fp8=fp8)
+    ref = (reference or Reference)(m, params, fp8=fp8)
     mu = {k: torch.zeros_like(t) for k, t in params.items()}
     nu = {k: torch.zeros_like(t) for k, t in params.items()}
     losses, first_grad = [], {}

@@ -180,8 +180,8 @@ def test_every_cell_reports_setup_another_metric_and_a_layer():
     for m in BENCH["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
-        assert m["moves"] in e2e and (HERE / "metrics" /
-                                      f"{m['name']}.py").is_file()
+        assert m["moves"] in e2e and harness.reader_path(
+            HERE / "metrics", m["name"]).is_file()
         for w in m["workloads"]:
             assert w in e2e[m["moves"]].get("workloads", cells)
     for cell in cells:

@@ -30,10 +30,14 @@ def test_no_file_imports_jax_or_the_reference_package(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("name", ["reference", "counts", "traffic",
-                                  "tracing"])
-def test_the_yardstick_imports_nothing_of_the_program(name):
-    assert "repro_torch" not in top_level_imports(HERE / f"{name}.py")
+YARDSTICK = [HERE / f"{name}.py" for name in
+             ("reference", "counts", "traffic", "tracing", "toy_moe")]
+YARDSTICK += sorted((HERE / "references").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", YARDSTICK, ids=lambda p: p.stem)
+def test_the_yardstick_imports_nothing_of_the_program(path):
+    assert "repro_torch" not in top_level_imports(path)
 
 
 def test_whole_name_comparison():

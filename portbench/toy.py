@@ -1,11 +1,16 @@
 """Toy cells for the CPU tests: a benchmark root in a directory of its own,
 holding a ``BENCHMARK.json`` and, under ``portbench/``, a configuration,
 a mix, a limits file and a per-layer metric for each toy cell, and nothing
-else.  It shows that a cell is added by adding files and entries."""
+else.  It shows that a cell is added by adding files and entries, and that
+a configuration whose block kind the default equations do not know
+(``toy-moe``) brings them as one more file, ``references/toy-moe.py``."""
 from __future__ import annotations
 
 import json
+import shutil
 from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
 
 DANUBE = {"name": "toy-danube", "family": "dense", "n_layers": 2,
           "d_model": 64, "n_heads": 4, "n_kv_heads": 1, "head_dim": 16,
@@ -19,6 +24,17 @@ MAMBA = {"name": "toy-mamba", "family": "ssm", "n_layers": 2,
          "ssm_headdim": 16, "ssm_expand": 2, "ssm_chunk": 16,
          "conv_width": 4, "norm_eps": 1e-6, "tie_embeddings": True,
          "dtype": "float32", "param_dtype": "float32", "remat": "none"}
+# the port's moe block behind one dense prefix block; a capacity factor of
+# n_experts / top_k gives every expert a slot for every token: none drops
+MOE = {"name": "toy-moe", "family": "moe", "n_layers": 3, "first_dense": 1,
+       "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16,
+       "d_ff": 96, "vocab": 128, "pattern": ["moe"], "n_experts": 8,
+       "top_k": 2, "n_shared_experts": 1, "d_expert": 32,
+       "capacity_factor": 4.0, "rope_theta": 10000.0, "norm_eps": 1e-6,
+       "tie_embeddings": False, "dtype": "float32",
+       "param_dtype": "float32", "remat": "none", "attn_chunk": 0}
+MODELS = (DANUBE, MAMBA, MOE)
+REFERENCES = {"toy-moe": "toy_moe"}      # config -> its module here
 MIXES = {
     "toy-prefill": {"kind": "prefill", "program": {"use_flash_kernel": True},
                     "lengths": {"list": [48, 96], "always": [128]},
@@ -34,7 +50,8 @@ TRAIN_LIMITS = {"first_loss_gap": {"limit": 1e-5},
                 "grad_gap": {"limit": 1e-4}, "change_gap": {"limit": 1e-4}}
 CELLS = {"toy-danube.toy-prefill": ("toy-danube", "toy-prefill"),
          "toy-mamba.toy-prefill": ("toy-mamba", "toy-prefill"),
-         "toy-danube.toy-train": ("toy-danube", "toy-train")}
+         "toy-danube.toy-train": ("toy-danube", "toy-train"),
+         "toy-moe.toy-prefill": ("toy-moe", "toy-prefill")}
 # a per-layer metric that a later PR would add as one file and one entry
 TOY_METRIC = '''def read(t):
     return float(len(t.prompts) + t.steps) or None
@@ -44,11 +61,14 @@ TOY_METRIC = '''def read(t):
 def write_root(root: Path) -> Path:
     """The toy benchmark under ``root``; returns ``root``."""
     here = root / "portbench"
-    for sub in ("configs", "traffic", "limits", "metrics"):
+    for sub in ("configs", "traffic", "limits", "metrics", "references"):
         (here / sub).mkdir(parents=True, exist_ok=True)
-    for model in (DANUBE, MAMBA):
+    for model in MODELS:
         (here / "configs" / f"{model['name']}.json").write_text(
             json.dumps({"model": model}))
+    for config, module in REFERENCES.items():
+        shutil.copy(HERE / f"{module}.py",
+                    here / "references" / f"{config}.py")
     for name, mix in MIXES.items():
         (here / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     for cell, (_, mix) in CELLS.items():
@@ -62,7 +82,7 @@ def write_root(root: Path) -> Path:
         "paths": ["portbench"], "run_seconds": 1,
         "configs": [{"name": m["name"], "source": "toy",
                      "file": f"portbench/configs/{m['name']}.json",
-                     "reduced": [], "why": "toy"} for m in (DANUBE, MAMBA)],
+                     "reduced": [], "why": "toy"} for m in MODELS],
         "workloads": [{"name": c, "config": cfg, "traffic": mix,
                        "chips": 1, "why": "toy"}
                       for c, (cfg, mix) in CELLS.items()],
