@@ -10,9 +10,10 @@ No share is priced at the rate of one implementation's arithmetic.
 A model is described by the dict under ``"model"`` in its configuration
 file (``portbench/configs/<config>.json``), with the port's field names.
 The whole-model counts here (``prefill_flops``, ``train_flops``,
-``attention_layers``) are the defaults: a configuration's own reference
-module (``references/<config>.py``) may give its own, and the readers that
-price a whole model take the cell's from the trace (``t.counts``).
+``attention_layers``, ``attention_calls``) are the defaults: a
+configuration's own reference module (``references/<config>.py``) may give
+its own, and the readers that price a whole model take the cell's from the
+trace (``t.counts``).
 """
 from __future__ import annotations
 
@@ -81,6 +82,19 @@ def attention_layers(m: dict) -> int:
     """Attention-layer calls of one request: the layers whose
     self-attention may take the flash kernel."""
     return sum(k in ("attn", "local_attn") for k in block_kinds(m))
+
+
+def attention_calls(m: dict, s: int) -> list:
+    """(FLOPs, bytes) of each flash-kernel call that a B=1 request of ``s``
+    tokens makes: one GQA call of the model's heads at the window of its
+    ``local_attn`` layers (if it has any) for each of its attention
+    layers."""
+    kinds = block_kinds(m)
+    window = m.get("window", 0) if "local_attn" in kinds else 0
+    hq, hkv, d = m["n_heads"], m["n_kv_heads"], head_dim(m)
+    call = (attention_flops(1, hq, s, d, True, window),
+            attention_bytes(1, hq, hkv, s, d))
+    return [call] * attention_layers(m)
 
 
 def layer_matmul_params(m: dict, kind: str) -> int:

@@ -42,6 +42,9 @@ ROOT = Path(__file__).resolve().parents[1]
 BENCH_DIR = "portbench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 TRACE_SECONDS = 4.0        # the traced part of a --trace 1 window
+# the work counts a configuration's module may give over ``counts.py``'s
+COUNTS = ("prefill_flops", "train_flops", "attention_layers",
+          "attention_calls")
 
 
 # ------------------------------------------------------------------ the cell
@@ -136,8 +139,10 @@ def yardstick(cell) -> SimpleNamespace:
     ``reference.py``'s and ``counts.py``'s, with whatever the
     configuration's own module (``references/<config>.py``, where there is
     one) gives over them: ``KINDS`` (its block kinds' leaves, added to the
-    default ``param_spec``), a ``Reference`` class, ``prefill_flops(m, s)``,
-    ``train_flops(m, b, s)``, ``attention_layers(m)``."""
+    default ``param_spec``, or replacing a default kind's), a ``Reference``
+    class, and the counts ``COUNTS``: ``prefill_flops(m, s)``,
+    ``train_flops(m, b, s)``, ``attention_layers(m)``,
+    ``attention_calls(m, s)``."""
     own = own_module(cell.own) if cell.own.is_file() else None
 
     def get(name, default):
@@ -151,11 +156,8 @@ def yardstick(cell) -> SimpleNamespace:
         Reference=ref_class,
         follow_training=functools.partial(reference.follow_training,
                                           reference=ref_class),
-        counts=SimpleNamespace(
-            prefill_flops=get("prefill_flops", counts.prefill_flops),
-            train_flops=get("train_flops", counts.train_flops),
-            attention_layers=get("attention_layers",
-                                 counts.attention_layers)))
+        counts=SimpleNamespace(**{name: get(name, getattr(counts, name))
+                                  for name in COUNTS}))
 
 
 def forbidden_modules() -> List[str]:

@@ -147,45 +147,66 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-def test_benchmark_keys_and_names():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+def keeps_keys_and_names(bench, root):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["portbench"]
-    assert 1 <= BENCH["run_seconds"] <= 51
-    metrics = BENCH["end_to_end"] + BENCH["per_layer"]
-    names = [x["name"] for x in BENCH["configs"] + BENCH["workloads"]
+    assert bench["paths"] == ["portbench"]
+    assert 1 <= bench["run_seconds"] <= 51
+    metrics = bench["end_to_end"] + bench["per_layer"]
+    names = [x["name"] for x in bench["configs"] + bench["workloads"]
              + metrics]
     assert len(names) == len(set(names))
     assert all(NAME.match(n) for n in names)
     assert all(UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
                for m in metrics)
-    for c in BENCH["configs"]:
+    for c in bench["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert (ROOT / c["file"]).is_file()
+        assert (root / c["file"]).is_file()
         assert c["file"].startswith("portbench/")
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert len(w["why"]) <= 200 and w["chips"] == 1
-        assert (HERE / "traffic" / f"{w['traffic']}.json").is_file()
-        assert (HERE / "limits" / f"{w['name']}.json").is_file()
+        assert (root / "portbench" / "traffic" / f"{w['traffic']}.json"
+                ).is_file()
+        assert (root / "portbench" / "limits" / f"{w['name']}.json"
+                ).is_file()
 
 
-def test_every_cell_reports_setup_another_metric_and_a_layer():
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+def reports_setup_another_metric_and_a_layer(bench, root):
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
     assert e2e["setup_s"]["bound"] <= 0.25 and "workloads" not in \
         e2e["setup_s"]
     assert all(0.01 <= m["bound"] <= 0.25 and m["source"] in
                ("host_clock", "device_trace") for m in e2e.values())
-    cells = [w["name"] for w in BENCH["workloads"]]
-    for m in BENCH["per_layer"]:
+    cells = [w["name"] for w in bench["workloads"]]
+    for m in bench["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
         assert m["moves"] in e2e and harness.reader_path(
-            HERE / "metrics", m["name"]).is_file()
+            root / "portbench" / "metrics", m["name"]).is_file()
         for w in m["workloads"]:
             assert w in e2e[m["moves"]].get("workloads", cells)
     for cell in cells:
         reported = [n for n, m in e2e.items()
                     if cell in m.get("workloads", cells)]
         assert "setup_s" in reported and len(reported) >= 2
-        assert any(cell in m["workloads"] for m in BENCH["per_layer"])
+        assert any(cell in m["workloads"] for m in bench["per_layer"])
+
+
+def test_benchmark_keys_and_names():
+    keeps_keys_and_names(BENCH, ROOT)
+
+
+def test_every_cell_reports_setup_another_metric_and_a_layer():
+    reports_setup_another_metric_and_a_layer(BENCH, ROOT)
+
+
+def test_a_cell_whose_configuration_brings_a_module_keeps_to_them(
+        tmp_path):
+    """The same two checks over the real benchmark with a cell added whose
+    configuration brings its own module, as a later PR adds one."""
+    root = toy.write_real_with_module(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    assert toy.MODULE_CELL in {w["name"] for w in bench["workloads"]}
+    keeps_keys_and_names(bench, root)
+    reports_setup_another_metric_and_a_layer(bench, root)

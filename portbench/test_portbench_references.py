@@ -1,15 +1,17 @@
 """A configuration's own reference module, found by the configuration's
-name: the two real configurations have none, resolve to the default
-equations and counts and draw the same weights as before the lookup; the
-toy ``toy-moe``, whose ``moe`` block and dense prefix the defaults do not
-know, runs correct through its module ``references/toy-moe.py``, its
-control and a capacity fault fail, and a traced run prices its work with
-the module's counts.  A module that takes anything of the program is
-refused."""
+name: every cell's yardstick takes its module exactly where there is one;
+the two real configurations have none, resolve to the default equations
+and counts and draw the same weights as before the lookup; the toy
+``toy-moe``, whose ``moe`` block the defaults do not know and whose dense
+prefix it replaces, runs correct through its module
+``references/toy-moe.py``, its control and a capacity fault fail, and a
+traced run prices its work and its flash calls with the module's counts.
+A module that takes anything of the program is refused."""
 import hashlib
 import json
 import shutil
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -46,6 +48,19 @@ PARENT_COUNTS = {
     "mamba2-1.3b": ([495972679680.0, 5389731397632.0, 9642576347136.0,
                      21558307749888.0], 139471311863808.0),
 }
+# (FLOPs, bytes) of each flash call at those S, as flash_roofline priced
+# them before the count was the yardstick's: danube's 24 layers alike
+PARENT_CALLS = {
+    "h2o-danube-1.8b": [
+        [(205824000.0, 2560000.0)] * 24,
+        [(21485322240.0, 26214400.0)] * 24,
+        [(68941977600.0, 46963200.0)] * 24,
+        [(257760952320.0, 104857600.0)] * 24],
+    "mamba2-1.3b": [[]] * 4,
+}
+# the cells of the benchmark before any configuration brought a module
+PINNED = ("h2o-danube-1.8b.chat-ragged", "h2o-danube-1.8b.pretrain-8x2048",
+          "h2o-danube-1.8b.rag-chunks", "mamba2-1.3b.rag-chunks")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -77,11 +92,7 @@ def weights_sha(weights) -> str:
 
 # ------------------------------------------------- the four cells, pinned
 
-@pytest.mark.parametrize("workload", sorted(
-    w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())
-    ["workloads"]))
-def test_real_cells_resolve_to_the_default_module(workload):
-    cell = harness.load_cell(workload)
+def resolves_to_the_defaults(cell):
     assert not cell.own.is_file()
     ys = harness.yardstick(cell)
     assert ys.own is None
@@ -90,6 +101,89 @@ def test_real_cells_resolve_to_the_default_module(workload):
     assert ys.counts.prefill_flops is counts.prefill_flops
     assert ys.counts.train_flops is counts.train_flops
     assert ys.counts.attention_layers is counts.attention_layers
+    assert ys.counts.attention_calls is counts.attention_calls
+
+
+@pytest.mark.parametrize("workload", PINNED)
+def test_real_cells_resolve_to_the_default_module(workload):
+    resolves_to_the_defaults(harness.load_cell(workload))
+
+
+# ------------------------------------------- every cell, its own yardstick
+
+def follows_its_module(cell):
+    """The cell's yardstick loads ``references/<config>.py`` exactly where
+    it exists, and takes from it the spec, the ``Reference`` class and each
+    count that the module defines."""
+    ys = harness.yardstick(cell)
+    if not cell.own.is_file():
+        assert ys.own is None
+        return
+    own = ys.own
+    assert own is not None and Path(own.__file__) == cell.own
+    assert ys.param_spec(cell.model) == reference.param_spec(
+        cell.model, getattr(own, "KINDS", None))
+    assert ys.Reference is getattr(own, "Reference", reference.Reference)
+    for name in harness.COUNTS:
+        assert getattr(ys.counts, name) is getattr(own, name,
+                                                   getattr(counts, name))
+
+
+@pytest.mark.parametrize("workload", sorted(
+    w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())
+    ["workloads"]))
+def test_every_cell_resolves_to_its_own_yardstick(workload):
+    follows_its_module(harness.load_cell(workload))
+
+
+@pytest.fixture(scope="module")
+def real_with_module(tmp_path_factory):
+    return toy.write_real_with_module(tmp_path_factory.mktemp("realmod"))
+
+
+def test_a_cell_with_a_module_resolves_to_it(real_with_module):
+    """The real benchmark with toy-moe's cell added as a later PR adds it:
+    the new cell takes its module, the four pinned cells the defaults."""
+    bench = json.loads((real_with_module / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        follows_its_module(harness.load_cell(w["name"], real_with_module))
+    cell = harness.load_cell(toy.MODULE_CELL, real_with_module)
+    assert harness.yardstick(cell).own is not None
+    for workload in PINNED:
+        resolves_to_the_defaults(harness.load_cell(workload,
+                                                   real_with_module))
+
+
+def ignoring(part):
+    """``harness.yardstick`` with one part of the module left out: the
+    whole module, its ``KINDS``, its ``Reference`` or one count."""
+    whole = harness.yardstick
+
+    def yardstick(cell):
+        ys = whole(cell)
+        bare = whole(SimpleNamespace(own=cell.own.with_name("absent.py")))
+        if part == "module":
+            return bare
+        if part == "KINDS":
+            ys.param_spec = bare.param_spec
+        elif part == "Reference":
+            ys.Reference = bare.Reference
+        else:
+            setattr(ys.counts, part, getattr(bare.counts, part))
+        return ys
+    return yardstick
+
+
+@pytest.mark.parametrize("part", ("module", "KINDS", "Reference")
+                         + harness.COUNTS)
+def test_a_yardstick_that_ignores_the_module_fails_the_check(
+        real_with_module, part, monkeypatch):
+    cell = harness.load_cell(toy.MODULE_CELL, real_with_module)
+    follows_its_module(cell)
+    monkeypatch.setattr(harness, "yardstick", ignoring(part))
+    # the default spec raises on the module's kind ``moe``
+    with pytest.raises((AssertionError, ValueError)):
+        follows_its_module(cell)
 
 
 @pytest.mark.parametrize("model", [toy.DANUBE, toy.MAMBA],
@@ -111,6 +205,39 @@ def test_real_specs_and_counts_are_the_parents(config):
     assert counts.train_flops(m, 8, 2048) == train
     want = 24 if config == "h2o-danube-1.8b" else 0
     assert counts.attention_layers(m) == want
+    assert [counts.attention_calls(m, s) for s in (200, 2048, 3669, 8192)] \
+        == PARENT_CALLS[config]
+
+
+def parent_flash_roofline(t):
+    """``metrics/flash_roofline.py`` as it read before its calls were the
+    yardstick's count."""
+    secs = t.kernel_seconds("attn_fwd_")
+    m = t.model
+    kinds = counts.block_kinds(m)
+    window = m.get("window", 0) if "local_attn" in kinds else 0
+    hq, hkv, d = m["n_heads"], m["n_kv_heads"], counts.head_dim(m)
+    bound = sum(
+        p["launches"].get("flash_attention", 0) * counts.bound_s(
+            counts.attention_flops(1, hq, p["len"], d, True, window),
+            counts.attention_bytes(1, hq, hkv, p["len"], d))
+        for p in t.prompts)
+    return 100.0 * bound / secs
+
+
+@pytest.mark.parametrize("traffic", ["rag-chunks", "chat-ragged"])
+def test_flash_roofline_reads_danube_as_before(traffic):
+    """To the last digit, over a cycle of the real mix's lengths, every
+    layer or all but one taking the kernel."""
+    cell = harness.load_cell(f"h2o-danube-1.8b.{traffic}")
+    lengths = PrefillTraffic(cell.mix, cell.model["vocab"], SEED).cycle
+    t = SimpleNamespace(
+        model=cell.model, counts=harness.yardstick(cell).counts,
+        kernel_seconds=lambda part: 0.731 if part == "attn_fwd_" else 0.0,
+        prompts=[{"len": n, "launches": {"flash_attention": 24 - i % 2}}
+                 for i, n in enumerate(lengths)])
+    read = harness.reader(cell, "flash_roofline")
+    assert read(t) == parent_flash_roofline(t)
 
 
 # ---------------------------------------------------- toy-moe, one new file
@@ -119,7 +246,8 @@ def test_the_module_is_found_by_the_configurations_name(root):
     cell = harness.load_cell(MOE_CELL, root)
     assert cell.own == root / "portbench" / "references" / "toy-moe.py"
     ys = harness.yardstick(cell)
-    assert ys.own.KINDS == {"moe": ys.own.moe_leaves}
+    assert ys.own.KINDS == {"moe": ys.own.moe_leaves,
+                            "attn": ys.own.prefix_leaves}
     assert issubclass(ys.Reference, reference.Reference)
     names = [n for n, *_ in ys.param_spec(cell.model)]
     assert names[:4] == ["tok_embed", "final_norm", "prefix.0.ln1",
@@ -256,13 +384,29 @@ def test_hand_counted_work():
                                              + 3 * 3 * 256 * 528 * 2)
 
 
-def test_traced_run_prices_with_the_modules_counts(tmp_path):
-    """prefill_mfu and flash_call_share, as the real benchmark has them,
-    added to the toy root: they read the module's counts (the default
-    count has no ``moe`` kind and would raise)."""
+# a module whose flash calls are not the default's GQA calls: each priced
+# at twice the default's operations and three times its bytes
+OTHER_CALLS = '''
+
+def attention_calls(m, s):
+    return [(2 * f, 3 * b) for f, b in counts.attention_calls(
+        dict(m, pattern=["attn"], first_dense=0), s)]
+'''
+FLASH_S = 1e-3          # the flash kernel's device seconds, as if traced
+
+
+def test_traced_run_prices_with_the_modules_counts(tmp_path, monkeypatch):
+    """prefill_mfu, flash_call_share and flash_roofline, as the real
+    benchmark has them, added to the toy root, under a module whose flash
+    calls differ from the default's: they read the module's counts (the
+    default count has no ``moe`` kind and would raise).  The CPU launches
+    no kernel, so the flash calls are counted and a device time is put in
+    the trace by hand."""
     root = toy.write_root(tmp_path)
+    module = root / "portbench" / "references" / "toy-moe.py"
+    module.write_text(module.read_text() + OTHER_CALLS)
     bench = json.loads((root / "BENCHMARK.json").read_text())
-    for name in ("prefill_mfu", "flash_call_share"):
+    for name in ("prefill_mfu", "flash_call_share", "flash_roofline"):
         shutil.copy(HERE / "metrics" / f"{name}.py",
                     root / "portbench" / "metrics" / f"{name}.py")
         bench["per_layer"].append({
@@ -270,15 +414,62 @@ def test_traced_run_prices_with_the_modules_counts(tmp_path):
             "source": "device_trace", "layer": "toy",
             "moves": "prompt_tok_s", "workloads": [MOE_CELL]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    from repro_torch.kernels.flash_attention import kernel
+    whole_mha, whole_reduce = kernel.mha, harness.Tracer.reduce
+
+    def counted(*a, **kw):
+        kernel.launches += 1
+        return whole_mha(*a, **kw)
+
+    def with_flash(tracer):
+        reduced = whole_reduce(tracer)
+        reduced["kernels"]["attn_fwd_toy"] = FLASH_S
+        return reduced
+    monkeypatch.setattr(kernel, "mha", counted)
+    monkeypatch.setattr(harness.Tracer, "reduce", with_flash)
     r = run(root, MOE_CELL, trace=True)
     assert r["correct"] is True
     got = {k: v["value"] for k, v in r["metrics"].items()}
     traced = int(got["toy_units"])             # the traced requests
     traffic = PrefillTraffic(toy.MIXES["toy-prefill"], toy.MOE["vocab"],
                              SEED)
-    flops = sum(toy_moe.prefill_flops(toy.MOE, len(traffic.ids(i)))
-                for i in range(traced))
+    lengths = [len(traffic.ids(i)) for i in range(traced)]
+    flops = sum(toy_moe.prefill_flops(toy.MOE, n) for n in lengths)
     want = 100.0 * flops / r["device"]["window_s"] / counts.PEAK_BF16_FLOPS
     assert got["prefill_mfu"] == pytest.approx(want, rel=1e-12)
-    # on the CPU no flash kernel launches: none of the 3 layers' calls
-    assert got["flash_call_share"] == 0.0
+    # each request's 3 layers each launched the kernel once
+    assert got["flash_call_share"] == 100.0
+    ys = harness.yardstick(harness.load_cell(MOE_CELL, root))
+    assert ys.counts.attention_calls is ys.own.attention_calls
+
+    def roofline(calls):
+        return 100.0 * sum(counts.bound_s(*c) for n in lengths
+                           for c in calls(toy.MOE, n)) / FLASH_S
+    assert got["flash_roofline"] == pytest.approx(
+        roofline(ys.own.attention_calls), rel=1e-12)
+    assert got["flash_roofline"] > 1.5 * roofline(toy_moe.attention_calls)
+
+
+def test_a_module_replaces_the_prefixs_kind(root, monkeypatch):
+    """toy-moe's dense prefix (kind ``attn``) takes the module's leaves and
+    equations, as a model whose prefix is not GQA would: with the defaults'
+    ``attn`` leaves and block made to raise, the cell still runs correct
+    and its fp8 control still fails."""
+    def default_used(*a, **kw):
+        raise AssertionError("the default attn kind was used")
+    monkeypatch.setitem(reference.KINDS, "attn", default_used)
+    monkeypatch.setattr(reference.Reference, "attn_block", default_used)
+    cell = harness.load_cell(MOE_CELL, root)
+    ys = harness.yardstick(cell)
+    assert ys.own.KINDS["attn"] is ys.own.prefix_leaves
+    names = [n for n, *_ in ys.param_spec(cell.model)]
+    assert [n for n in names if n.startswith("prefix.0.")] == [
+        "prefix.0." + n for n in ("ln1", "attn.wq", "attn.wk", "attn.wv",
+                                  "attn.wo", "ln2", "mlp.wg", "mlp.wu",
+                                  "mlp.wd")]
+    r = run(root, MOE_CELL, control=True)
+    assert r["correct"] is True, r["checks"]
+    limits = json.loads((root / "portbench" / "limits" /
+                         f"{MOE_CELL}.json").read_text())
+    control = r["_run"]["control"]
+    assert not harness.passed(harness.compare(control, limits)), control

@@ -3,7 +3,9 @@ holding a ``BENCHMARK.json`` and, under ``portbench/``, a configuration,
 a mix, a limits file and a per-layer metric for each toy cell, and nothing
 else.  It shows that a cell is added by adding files and entries, and that
 a configuration whose block kind the default equations do not know
-(``toy-moe``) brings them as one more file, ``references/toy-moe.py``."""
+(``toy-moe``) brings them as one more file, ``references/toy-moe.py``.
+``write_real_with_module`` adds that configuration's cell to a copy of the
+real benchmark, as a later PR would add one."""
 from __future__ import annotations
 
 import json
@@ -100,5 +102,43 @@ def write_root(root: Path) -> Path:
              "source": "program_counter", "layer": "toy",
              "moves": "setup_s"}],
     }
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+# the cell a later PR adds to the real benchmark in write_real_with_module,
+# reporting what this real prefill cell reports
+MODULE_CELL = "toy-moe.toy-prefill"
+LIKE_CELL = "h2o-danube-1.8b.rag-chunks"
+
+
+def write_real_with_module(root: Path) -> Path:
+    """The real benchmark's ``BENCHMARK.json`` and data files under ``root``,
+    with ``MODULE_CELL`` added as a later PR adds a cell whose configuration
+    brings its own module: its configuration, mix, limits and module as new
+    files, its entries appended, and its name appended to the ``workloads``
+    of every metric that ``LIKE_CELL`` reports.  Returns ``root``."""
+    here = root / "portbench"
+    for sub in ("configs", "traffic", "limits", "metrics", "references"):
+        if (HERE / sub).is_dir():
+            shutil.copytree(HERE / sub, here / sub)
+        (here / sub).mkdir(parents=True, exist_ok=True)
+    config, mix = CELLS[MODULE_CELL]
+    (here / "configs" / f"{config}.json").write_text(
+        json.dumps({"model": MOE}))
+    (here / "traffic" / f"{mix}.json").write_text(json.dumps(MIXES[mix]))
+    (here / "limits" / f"{MODULE_CELL}.json").write_text(
+        json.dumps(PREFILL_LIMITS))
+    shutil.copy(HERE / f"{REFERENCES[config]}.py",
+                here / "references" / f"{config}.py")
+    bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": config, "source": "toy",
+                             "file": f"portbench/configs/{config}.json",
+                             "reduced": [], "why": "toy"})
+    bench["workloads"].append({"name": MODULE_CELL, "config": config,
+                               "traffic": mix, "chips": 1, "why": "toy"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if LIKE_CELL in m.get("workloads", []):
+            m["workloads"].append(MODULE_CELL)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root

@@ -7,10 +7,12 @@ expert) as one new file.
 It gives only what differs from ``reference.py`` and ``counts.py``: the
 ``moe`` kind's leaves (``KINDS``), its equations on a subclass of
 ``Reference``, and the work counts of a model whose layers use ``top_k`` of
-their experts.
-The dense ``prefix`` blocks come with the default layout.  The router is
-softmax top-k, ties to the lower expert, the k gates normalised; no token
-is dropped (the configuration's capacity holds every assignment).
+their experts and all take the flash kernel.  It also replaces a default
+kind: the dense ``prefix`` blocks (kind ``attn`` in the default layout) take
+their leaves and equations from here, as a model whose prefix is not the
+default GQA block would.  The router is softmax top-k, ties to the lower
+expert, the k gates normalised; no token is dropped (the configuration's
+capacity holds every assignment).
 """
 from __future__ import annotations
 
@@ -44,15 +46,25 @@ def moe_leaves(pre: str, m: dict) -> list:
     return spec
 
 
-KINDS = {"moe": moe_leaves}
+def prefix_leaves(pre: str, m: dict) -> list:
+    """A dense prefix block after its ``ln1``: GQA, ``ln2`` and a SwiGLU
+    MLP of ``d_ff``."""
+    return (reference.gqa_leaves(pre + "attn.", m)
+            + [reference.norm(m, pre + "ln2", m["d_model"])]
+            + reference.mlp_leaves(pre + "mlp.", m, m["d_ff"]))
+
+
+KINDS = {"moe": moe_leaves, "attn": prefix_leaves}
 
 
 class Reference(reference.Reference):
     def block(self, pre, kind, x):
-        if kind != "moe":
+        if kind not in KINDS:
             return super().block(pre, kind, x)
         x = x + self.gqa(pre + "attn.", self.norm(pre + "ln1", x), 0)
-        return x + self.moe(pre + "moe.", self.norm(pre + "ln2", x))
+        h = self.norm(pre + "ln2", x)
+        return x + (self.moe(pre + "moe.", h) if kind == "moe"
+                    else self.swiglu(pre + "mlp.", h))
 
     def moe(self, pre, h):
         """Each token through its top-k experts, weighted by its normalised
@@ -100,6 +112,15 @@ def attention_layers(m: dict) -> int:
     """Every layer's self-attention is GQA, and may take the flash
     kernel."""
     return len(counts.block_kinds(m))
+
+
+def attention_calls(m: dict, s: int) -> list:
+    """One flash call a layer: causal GQA of the model's heads, no
+    window."""
+    hq, hkv, d = m["n_heads"], m["n_kv_heads"], counts.head_dim(m)
+    call = (counts.attention_flops(1, hq, s, d, True, 0),
+            counts.attention_bytes(1, hq, hkv, s, d))
+    return [call] * attention_layers(m)
 
 
 def attention_work(m: dict, s: int, b: int = 1) -> float:
