@@ -463,14 +463,44 @@ SSD_CHUNK_TOL = {"atol": 2e-4, "rtol": 2e-3}     # tests/test_kernels.py:198
 # tolerances (tests/test_kernels.py:22); for the matmul atol is tol * sqrt(k)
 # (tests/test_kernels.py:112-114).
 MM_RMS_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
-# What each kernel computes with, by input type: printed on its lines and
-# kept in its entry of the kernels JSON line.
-DESIGN = {"flash_attention": {torch.bfloat16: "mma.sync bf16 + cp.async",
-                              torch.float32: "fp32 FMA, CUDA cores"},
+# What each kernel computes with, by input type (flash attention: by the
+# name its wrapper's rule, ``kernel.select_design``, gives): printed on its
+# lines and kept in its entry of the kernels JSON line.
+DESIGN = {"flash_attention": {
+              "wgmma": "wgmma + TMA, warp-specialised (attn_fwd_wg)",
+              "mma.sync": "mma.sync bf16 + cp.async (attn_fwd_tc)",
+              "fp32": "fp32 FMA, CUDA cores (attn_fwd_f32)"},
           "matmul": {torch.float32: "3xTF32 mma.sync + cp.async",
                      torch.bfloat16: "mma.sync bf16"},
           "ssd": {torch.float32: "3xTF32 mma.sync + cp.async, scores once "
                                  "per 16 heads"}}
+
+
+def flash_design(q, k, v) -> str:
+    """The design the flash wrapper picks for these inputs."""
+    d = fa_kernel.padded_head_dim(q.shape[-1])
+    return DESIGN["flash_attention"][fa_kernel.select_design(
+        q.dtype, d, fa_kernel.tma_aligned(q, k, v))]
+
+
+def expected_wgmma(cfg, flash_launches: int) -> int:
+    """The flash launches of a request that take the wgmma kernel: all of
+    them for a bf16 model whose (padded) head dim is among
+    ``WGMMA_HEAD_DIMS`` (the models hand over 16-byte-aligned views), else
+    none."""
+    if flash_launches == 0 or cfg.dtype != "bfloat16":
+        return 0
+    d = fa_kernel.padded_head_dim(cfg.head_dim)
+    return flash_launches if d in fa_kernel.WGMMA_HEAD_DIMS else 0
+
+
+def check_wgmma(what: str, cfg, launches: dict) -> int:
+    got = fa_kernel.wgmma_launches
+    want = expected_wgmma(cfg, launches["flash_attention"])
+    if got != want:
+        raise AssertionError(f"{what}: {got} wgmma flash launches of "
+                             f"{launches['flash_attention']}, want {want}")
+    return got
 
 
 def phase(label: str, **fields) -> None:
@@ -553,6 +583,7 @@ def build_kernels() -> None:
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    fa_kernel.wgmma_launches = 0
 
 
 def read_launches() -> dict:
@@ -711,8 +742,11 @@ def timed_case(spec, dtype, gen) -> dict:
     name, b, hq, hkv, s, d, causal, window, strided = spec
     q, k, v = attention_inputs(b, hq, hkv, s, d, dtype, strided, gen)
     kw = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+    design = flash_design(q, k, v)
+    fa_kernel.wgmma_launches = 0
     got = fa_kernel.mha(q, k, v, **kw)
     torch.cuda.synchronize()
+    wgmma = fa_kernel.wgmma_launches
     tol = KERNEL_TOL[dtype]
     err = check_close(f"flash_attention {name} {dtype}", got,
                       fa_ref.attention(q, k, v, **kw), **tol)
@@ -732,7 +766,7 @@ def timed_case(spec, dtype, gen) -> dict:
     flops = attention_flops(b, hq, s, d, causal, window)
     dt = str(dtype)[6:]
     phase("kernel", kernel="flash_attention", case=repr(name), dtype=dt,
-          design=repr(DESIGN["flash_attention"][dtype]),
+          design=repr(design), wgmma_launches=wgmma,
           max_abs_err=f"{err:.3e}", tol=tol, kernel_ms=f"{kernel_ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **extra,
@@ -741,7 +775,7 @@ def timed_case(spec, dtype, gen) -> dict:
     torch.cuda.empty_cache()
     return {"case": name, "dtype": dt, "max_abs_err": err, "tol": tol,
             "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "design": design}
 
 
 def flash_attention_checks() -> dict:
@@ -764,8 +798,7 @@ def flash_attention_checks() -> dict:
             checks.append({"case": name, "dtype": str(dtype)[6:],
                            "max_abs_err": err, "tol": tol})
             phase("kernel", kernel="flash_attention", case=repr(name),
-                  dtype=str(dtype)[6:],
-                  design=repr(DESIGN["flash_attention"][dtype]),
+                  dtype=str(dtype)[6:], design=repr(flash_design(q, k, v)),
                   max_abs_err=f"{err:.3e}", tol=tol)
             del q, k, v, out, want
             torch.cuda.empty_cache()
@@ -784,7 +817,7 @@ def flash_attention_checks() -> dict:
             case = timed_case(spec, dtype, gen)
             extra_shapes[key][case["dtype"]] = {k: case[k] for k in (
                 "max_abs_err", "tol", "ms", "plain_ms", "library_ms",
-                "bound_ms", "bound_by")}
+                "bound_ms", "bound_by", "design")}
     extra_shapes["d40"]["runs_at_head_dim"] = fa_kernel.padded_head_dim(40)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -793,7 +826,7 @@ def flash_attention_checks() -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"],
-            "design": DESIGN["flash_attention"][torch.bfloat16],
+            "design": main["design"],
             "shape": {**case_shape(MAIN), "dtype": "bfloat16"},
             "head_dims": list(fa_kernel.HEAD_DIMS), **extra_shapes,
             "checks": checks}
@@ -1795,6 +1828,7 @@ def prefill_requests(arch: str, entries: dict, seq: int = 0) -> None:
     launches32 = read_launches()
     check_launches(f"{path} fp32 prefill", launches32,
                    expected_launches(cfg32, seq, mlen))
+    check_wgmma(f"{path} fp32 prefill", cfg32, launches32)
     model.cfg = plain(cfg32, seq)
     with recorded_routes(cfg32) as routes_p:
         logits_p = prefill(tokens, memory)
@@ -1845,6 +1879,7 @@ def prefill_requests(arch: str, entries: dict, seq: int = 0) -> None:
     first_ms = host_ms(request)
     launches = read_launches()
     check_launches(f"{path} bf16 prefill", launches, want)
+    wgmma = check_wgmma(f"{path} bf16 prefill", cfg, launches)
     record_launches(entries, path, launches)
     kernel_req_ms = sorted([first_ms] + [host_ms(request) for _ in range(2)])
     model.cfg = plain(cfg, seq)
@@ -1865,7 +1900,8 @@ def prefill_requests(arch: str, entries: dict, seq: int = 0) -> None:
                 f"{held}"
         err16 = max_abs_err(what, logits_k, logits_p)
     phase("prefill", arch=arch, dtype="bfloat16", tokens=seq, **mem_fields,
-          depth=repr(depth(cfg)), launches=launches, **gates,
+          depth=repr(depth(cfg)), launches=launches, wgmma_launches=wgmma,
+          **gates,
           request_ms=[round(t, 3) for t in kernel_req_ms],
           plain_request_ms=[round(t, 3) for t in plain_req_ms],
           tok_per_s=f"{seq / kernel_req_ms[1] * 1e3:.1f}",

@@ -16,16 +16,23 @@ from .. import _build
 from . import ref
 
 HEAD_DIMS = (16, 64, 80, 128, 256)  # head dims the kernel is instantiated for
+# bf16 head dims that take the wgmma + TMA kernel (``attn_fwd_wg``), each
+# faster there than on mma.sync on the card; 16 and 256 stay on mma.sync
+# (``attn_fwd_tc``: at 256 a 64-row fp32 O alone is 128 registers a
+# thread), fp32 on ``attn_fwd_f32``.
+WGMMA_HEAD_DIMS = (64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535               # heads and batch ride grid.y and grid.z
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 # Kernel launches; the wrapper adds one per launch and nowhere else.  A
 # caller resets it to 0 before the run it wants to count.
 launches = 0
+# The launches among them that took the wgmma + TMA kernel.
+wgmma_launches = 0
 
 
 def check_inputs(q, k, v) -> None:
@@ -79,6 +86,26 @@ def pad_head_dim(q, k, v):
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
 
 
+def tma_aligned(*tensors) -> bool:
+    """Whether TMA can describe each tensor as it is: a base and every
+    stride but the head dim's a positive multiple of 16 bytes."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st > 0 and st * t.element_size() % 16 == 0
+                       for st in t.stride()[:3])
+               for t in tensors)
+
+
+def select_design(dtype: torch.dtype, head_dim: int, aligned: bool) -> str:
+    """The kernel a launch takes, by what the wrapper can observe: "wgmma"
+    (bf16 at a head dim of ``WGMMA_HEAD_DIMS`` that TMA can describe),
+    "mma.sync" (any other bf16) or "fp32"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if head_dim in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "mma.sync"
+
+
 def _entry():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = _ARGTYPES
@@ -92,9 +119,10 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     window > 0 keeps keys with q_pos - window <= k_pos (on top of causal).
     Returns a contiguous (B, Hq, S, D) tensor in q's dtype.
 
-    On the card, bf16 inputs run on the tensor cores (mma.sync, scores and
-    softmax in fp32, P split into bf16 p_hi + p_lo for the product with V);
-    fp32 inputs run in fp32 on the CUDA cores.
+    On the card, bf16 inputs run on the tensor cores (scores and softmax in
+    fp32, P split into bf16 p_hi + p_lo for the product with V): through
+    wgmma fed by TMA where ``select_design`` says so, else mma.sync; fp32
+    inputs run in fp32 on the CUDA cores.
 
     A head dim ``d <= 256`` that is not in ``HEAD_DIMS`` (40, 96, ...) is
     zero-padded to the next instantiated one (``pad_head_dim``): zero
@@ -102,7 +130,7 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     output's zero columns are sliced off.  Still one kernel launch; the pad
     costs a padded copy of q, k and v and of the output, and the kernel
     does the work of the padded width (d = 40 runs at 64: 1.6x)."""
-    global launches
+    global launches, wgmma_launches
     _build.refuse_autograd("flash attention", q, k, v)
     _build.refuse_traced("flash attention", q, k, v)
     if q.device.type == "cpu":
@@ -115,16 +143,18 @@ def mha(q, k, v, *, sm_scale: float, causal: bool = True, window: int = 0):
     q, k, v = pad_head_dim(q, k, v)
     check_inputs(q, k, v)
     b, hq, s, d = q.shape
+    wgmma = select_design(q.dtype, d, tma_aligned(q, k, v)) == "wgmma"
     out = torch.empty((b, hq, s, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], b, hq, k.shape[1], s, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(sm_scale), int(causal), int(window),
+            float(sm_scale), int(causal), int(window), int(wgmma),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(code {err}) for q {tuple(q.shape)} {q.dtype}")
     launches += 1
+    wgmma_launches += wgmma
     return out if d == d_in else out[..., :d_in].contiguous()

@@ -86,6 +86,44 @@ def test_cpu_tensors_take_plain_path_without_launching(s):
     assert kernel.launches == 0
 
 
+@pytest.mark.parametrize("aligned", [True, False], ids=["tma", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+def test_design_rule_by_head_dim_dtype_and_alignment(d, dtype, aligned):
+    """bf16 at head dims 64, 80 and 128 takes the wgmma + TMA kernel when
+    TMA can describe the inputs; every other bf16 call stays on mma.sync,
+    fp32 on the CUDA cores."""
+    want = ("fp32" if dtype == torch.float32
+            else "wgmma" if aligned and d in (64, 80, 128) else "mma.sync")
+    assert kernel.select_design(dtype, d, aligned) == want
+
+
+def _strided(b, s, h, d, width):
+    """(B, H, S, D) views of a (B, S, H, width) tensor, bf16."""
+    return torch.zeros((b, s, h, width),
+                       dtype=torch.bfloat16)[..., :d].transpose(1, 2)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: torch.zeros((1, 8, 300, 80), dtype=torch.bfloat16), True),
+    (lambda: _strided(2, 300, 8, 80, 80), True),        # the model's views
+    (lambda: _strided(1, 300, 8, 80, 81), False),       # rows 162 bytes apart
+    (lambda: _strided(1, 300, 8, 80, 88)[..., 1:], False),  # base 2 bytes in
+    (lambda: torch.zeros((1, 8, 300, 80)), True),       # fp32: 16-byte rows
+], ids=["contiguous", "bshd_views", "rows_81", "base_offset", "fp32"])
+def test_tma_aligned_reads_bases_and_strides(make, want):
+    t = make()
+    assert kernel.tma_aligned(t, t, t) is want
+
+
+def test_cpu_call_leaves_the_wgmma_counter():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, 1, 4, 2, 64, 80))
+    kernel.launches = kernel.wgmma_launches = 0
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert (kernel.launches, kernel.wgmma_launches) == (0, 0)
+
+
 def test_single_rounding_variant_fits_the_kernel_source():
     """scripts/flash_p_rounding.py measures the bf16 kernel against a copy
     with P rounded once; its edits must still fit the kernel's source, and

@@ -50,6 +50,14 @@ FLASH_TOL = [(torch.float32, {"atol": 5e-5, "rtol": 5e-5}),
              (torch.bfloat16, {"atol": 1e-3, "rtol": 1e-2})]
 
 
+def _takes_wgmma(q, k, v) -> int:
+    """1 where the wrapper's rule sends these inputs to the wgmma + TMA
+    kernel, else 0."""
+    d = kernel.padded_head_dim(q.shape[-1])
+    return int(kernel.select_design(q.dtype, d, kernel.tma_aligned(q, k, v))
+               == "wgmma")
+
+
 @pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("s,d,hq,hkv,causal,window", [
     (1000, 80, 32, 8, True, 4096),      # ragged tail, window wider than S
@@ -85,11 +93,12 @@ def test_kernel_matches_plain_version(cuda_device, dtype, tol, s, d, hq,
     q, k, v = (torch.randn((2, h, s, d), generator=gen,
                            device=cuda_device).to(dtype)
                for h in (hq, hkv, hkv))
-    kernel.launches = 0
+    kernel.launches = kernel.wgmma_launches = 0
     got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=causal,
                      window=window)
     torch.cuda.synchronize()
     assert kernel.launches == 1
+    assert kernel.wgmma_launches == _takes_wgmma(q, k, v)
     want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=causal,
                          window=window)
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -116,11 +125,12 @@ def test_kernel_matches_plain_version_at_edges(cuda_device, dtype, tol, b, s,
         return torch.randn((b, h, s, d), generator=gen,
                            device=cuda_device).to(dtype)
     q, k, v = make(hq), make(hkv), make(hkv)
-    kernel.launches = 0
+    kernel.launches = kernel.wgmma_launches = 0
     got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=True,
                      window=window)
     torch.cuda.synchronize()
     assert kernel.launches == 1
+    assert kernel.wgmma_launches == _takes_wgmma(q, k, v)
     want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=True,
                          window=window)
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -128,16 +138,72 @@ def test_kernel_matches_plain_version_at_edges(cuda_device, dtype, tol, b, s,
 
 @pytest.mark.parametrize("dtype,tol", FLASH_TOL, ids=["fp32", "bf16"])
 def test_kernel_takes_views_without_16_byte_rows(cuda_device, dtype, tol):
-    """Rows 81 elements apart: the bf16 kernel stages such tiles with
-    element loads instead of 16-byte copies."""
+    """Rows 81 elements apart: TMA cannot describe them, so bf16 stays on
+    the mma.sync kernel, which stages such tiles with element loads
+    instead of 16-byte copies."""
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     q, k, v = (torch.randn((1, h, 300, 81), generator=gen,
                            device=cuda_device).to(dtype)[..., :80]
                for h in (8, 2, 2))
+    kernel.launches = kernel.wgmma_launches = 0
     got = kernel.mha(q, k, v, sm_scale=80 ** -0.5, causal=True, window=64)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.wgmma_launches) == (1, 0)
     want = ref.attention(q, k, v, sm_scale=80 ** -0.5, causal=True,
                          window=64)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _bshd_views(b, s, hq, hkv, d, dtype, seed):
+    """q, k, v as the model hands them over: (B, H, S, D) views of
+    (B, S, H, D) tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen,
+                        device="cuda").to(dtype).transpose(1, 2)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("s,hq,hkv,window", [
+    (8192, 32, 8, 4096),                # danube's prefill at full length
+    (299, 32, 8, 4096),                 # chat's ragged lengths
+    (1007, 32, 8, 4096),
+    (3669, 32, 8, 4096),
+    (1024, 8, 8, 4096),                 # GQA group 1
+    (1024, 32, 8, 256),                 # group 4, the window bites
+    (1024, 64, 8, 4096),                # group 8
+], ids=["s8192_w4096", "s299", "s1007", "s3669", "group1", "group4_w256",
+        "group8"])
+def test_wgmma_kernel_at_danube_shapes(cuda_device, s, hq, hkv, window):
+    """bf16 at head dim 80 through strided (B, S, H, D) views takes the
+    wgmma + TMA kernel, within FLASH_TOL of the plain version."""
+    q, k, v = _bshd_views(1, s, hq, hkv, 80, torch.bfloat16, 5)
+    kernel.launches = kernel.wgmma_launches = 0
+    got = kernel.mha(q, k, v, sm_scale=80 ** -0.5, causal=True,
+                     window=window)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.wgmma_launches) == (1, 1)
+    want = ref.attention(q, k, v, sm_scale=80 ** -0.5, causal=True,
+                         window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **dict(FLASH_TOL)[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype,d,hq,hkv,window", [
+    (torch.float32, 80, 32, 8, 4096),   # fp32: the CUDA-core kernel
+    (torch.bfloat16, 256, 16, 1, 2048),  # D 256: mma.sync
+    (torch.bfloat16, 16, 4, 1, 8),       # D 16: mma.sync
+], ids=["fp32_d80", "bf16_d256", "bf16_d16"])
+def test_fallbacks_leave_the_wgmma_kernel(cuda_device, dtype, d, hq, hkv,
+                                          window):
+    q, k, v = _bshd_views(1, 1000, hq, hkv, d, dtype, 6)
+    kernel.launches = kernel.wgmma_launches = 0
+    got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.wgmma_launches) == (1, 0)
+    want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=True,
+                         window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **dict(FLASH_TOL)[dtype])
 
 
 def test_unsupported_head_dim_raises_on_card(cuda_device):
@@ -166,11 +232,13 @@ def test_small_and_padded_head_dims_match_plain_version(
         return torch.randn((b, h, s, d), generator=gen,
                            device=cuda_device).to(dtype)
     q, k, v = make(hq), make(hkv), make(hkv)
-    kernel.launches = 0
+    kernel.launches = kernel.wgmma_launches = 0
     got = kernel.mha(q, k, v, sm_scale=d ** -0.5, causal=True,
                      window=window)
     torch.cuda.synchronize()
     assert kernel.launches == 1
+    # d = 40 runs padded, in fresh contiguous tensors, at 64
+    assert kernel.wgmma_launches == (dtype == torch.bfloat16 and d == 40)
     assert got.shape == q.shape and got.is_contiguous()
     want = ref.attention(q, k, v, sm_scale=d ** -0.5, causal=True,
                          window=window)
